@@ -1,0 +1,54 @@
+"""Carry state between numpy and the port's dataclasses.
+
+The parity tests make one set of numpy arrays and hand it to both packages;
+this module is the port's side of that crossing (the JAX side converts its
+own pytrees). Nothing here imports the reference package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.accuracy import AccuracyFn
+from .core.types import META_FIELDS, PARAM_FIELDS, Allocation, SystemParams, Weights
+from .device import resolve_device
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
+
+
+def params_from_numpy(arrays: dict, meta: dict, device="cuda") -> SystemParams:
+    """`SystemParams` from numpy arrays keyed by field name (``dev_mask`` and
+    ``sc_mask`` optional) and a dict of the meta fields."""
+    dev = resolve_device(device)
+    unknown = set(arrays) - set(PARAM_FIELDS)
+    if unknown:
+        raise ValueError(f"params_from_numpy: unknown array field(s) {sorted(unknown)}")
+    data = {k: _tensor(v, dev) for k, v in arrays.items() if v is not None}
+    return SystemParams(**data, **{k: meta[k] for k in META_FIELDS if k in meta})
+
+
+def weights_from_numpy(arrays: dict, device="cuda") -> Weights:
+    """`Weights` from ``{"kappa1", "kappa2", "kappa3"}`` scalars or (B,) arrays."""
+    dev = resolve_device(device)
+    return Weights(*(_tensor(arrays[k], dev) for k in ("kappa1", "kappa2", "kappa3")))
+
+
+def accuracy_from_numpy(arrays: dict, device="cuda") -> AccuracyFn:
+    """`AccuracyFn` from ``{"a", "b"}`` scalars or (B,) arrays."""
+    dev = resolve_device(device)
+    return AccuracyFn(_tensor(arrays["a"], dev), _tensor(arrays["b"], dev))
+
+
+def allocation_from_numpy(arrays: dict, device="cuda") -> Allocation:
+    """`Allocation` from ``{"f", "P", "X", "rho"}`` arrays."""
+    dev = resolve_device(device)
+    return Allocation(*(_tensor(arrays[k], dev) for k in ("f", "P", "X", "rho")))
+
+
+def allocation_to_numpy(alloc: Allocation) -> dict:
+    """``{"f", "P", "X", "rho"}`` numpy arrays of an `Allocation`."""
+    return {
+        k: getattr(alloc, k).detach().cpu().numpy() for k in ("f", "P", "X", "rho")
+    }
