@@ -25,15 +25,44 @@ the CPU in place of the card):
    ``use_kernel_objective=False`` must give the identical X, P and rho. A
    small input solved on the card and on the CPU must give the same X.
 
-With ``--profile``, one short solve per config (cut depth) also runs under
-`torch.profiler`, for the device's busy share. The last lines are the
-kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+4. build check of the flash-attention kernel of
+   `repro_torch.kernels.flash_attention` against its plain version (the
+   chunked attention of `repro_torch.models.attention`) on the card: float32
+   and bfloat16; MHA, GQA, MQA; S not a block multiple; window; softcap;
+   non-causal; hd 256; the Gemma-2 2B layer shapes (B = 1, S = 8192, H 8,
+   KV 4, hd 256, bf16; global and window 4096, softcap 50) and the
+   Qwen2.5-3B shape (H 16, KV 2, hd 128). Tolerance, absolute plus relative:
+   float32 the JAX tests' own 2e-5; bfloat16 one bf16 ulp (rtol 2**-7,
+   atol 1e-4), since kernel and plain version both work in float32 on the
+   same inputs and differ only in the rounding of the output (the JAX tests'
+   2e-2 would be as large as the outputs of the late rows at S = 8192).
+   Each case is timed on the device (CUDA-graph replay) beside its bound,
+   with the plain version and one PyTorch call that computes the same
+   function: `scaled_dot_product_attention` without a softcap, compiled
+   `flex_attention` with the softcap as its score_mod;
+5. the LM slice: `gemma2_2b` at full width in bfloat16 on the card from a
+   seeded `torch.Generator`; `prefill(use_kernel=True)` on B = 1, S = 8192
+   tokens must launch the kernel once per layer (26) and give finite logits.
+   The same prefill with the plain attention and the same model in float32
+   (plain attention) are the yardsticks: the kernel's logits must lie no
+   farther from the plain bf16 logits than the plain bf16 logits lie from
+   the float32 ones (the bf16 rounding of the whole model);
+6. `ServeLoop` on the same model: 8 requests of 8 tokens, 4 slots, 16 new
+   tokens each, max_len 256; every request must come back with 16 tokens
+   in the vocabulary.
+
+Each path (3, and 5 + 6) is driven with the kernels' launch counts set to 0
+just before it and read just after. With ``--profile``, one short solve
+per config (cut depth) also runs under `torch.profiler`, for the device's
+busy share. The last lines are the kernels' JSON record, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -42,6 +71,13 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+#: phase 4's (atol, rtol) of the kernel against its plain version: float32 the
+#: JAX tests' 2e-5 (tests/test_kernels.py), bfloat16 one ulp of the output
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-4, 2**-7)}
+#: the library call against the plain version: the JAX tests' tolerance
+LIBRARY_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LM_TOKENS = 8192                 # phase 5's prefill length (> the 4096 window)
 RTOL, ATOL = 5e-7, 1e-5
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
 #: floating-point operations per (candidate, device) of eq. 13 as the kernel
@@ -210,6 +246,7 @@ def phase_slice(device):
     from repro_torch.core.pgd import PGDConfig
     from repro_torch.core.types import tree_map
     from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.scenarios import get_family
 
     fam = get_family("iid_rayleigh")
@@ -219,7 +256,7 @@ def phase_slice(device):
     configs = {"pgd": AllocatorConfig(inner="pgd"), "sca": AllocatorConfig()}
 
     solves = {}
-    kernel.launches = 0                      # the main path starts here
+    kernel.launches = flash_kernel.launches = 0   # the allocator path starts here
     for name, cfg in configs.items():
         before = kernel.launches
         torch.cuda.synchronize()
@@ -234,6 +271,7 @@ def phase_slice(device):
         solves[name] = dict(res=res, wall_s=wall, launches=n)
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
     main_path_launches = kernel.launches     # ... and ends here
+    check(flash_kernel.launches == 0, "the allocator path launched the flash kernel")
 
     for name, cfg in configs.items():
         torch.cuda.synchronize()
@@ -315,12 +353,235 @@ def phase_profile(device):
     return out
 
 
+def attention_pairs(S: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one (batch, head): the work the
+    attention needs on these inputs."""
+    total = 0
+    for q in range(S):
+        lo = max(0, q - window + 1) if window is not None else 0
+        hi = q + 1 if causal else S
+        total += hi - lo
+    return total
+
+
+def flash_bound(B, S, H, KV, hd, dtype, causal, window):
+    """(ms, 'bytes'|'operations'): 4 * hd operations per unmasked pair and
+    head over the peak of the input type (bf16 tensor cores; float32 outside
+    them), against q, k, v read once and the output written once."""
+    import torch
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    flops = 4 * hd * B * H * attention_pairs(S, causal, window)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: phase 4's cases: (name, (B, S, H, KV, hd), dtype, causal, window, cap)
+FLASH_CASES = [
+    *((f"mha {dt}", (1, 128, 4, 4, 64), dt, True, None, None) for dt in ("float32", "bfloat16")),
+    *((f"gqa {dt}", (2, 256, 4, 2, 64), dt, True, None, None) for dt in ("float32", "bfloat16")),
+    *((f"mqa {dt}", (1, 256, 8, 1, 32), dt, True, None, None) for dt in ("float32", "bfloat16")),
+    *((f"ragged S {dt}", (1, 192, 2, 2, 128), dt, True, None, None) for dt in ("float32", "bfloat16")),
+    ("window", (2, 256, 4, 2, 64), "float32", True, 64, None),
+    ("softcap", (2, 256, 4, 2, 64), "float32", True, None, 50.0),
+    ("non-causal", (2, 256, 4, 2, 64), "float32", False, None, None),
+    ("hd 256 window softcap", (1, 160, 2, 1, 256), "float32", True, 64, 50.0),
+    ("gemma2_2b global", (1, 8192, 8, 4, 256), "bfloat16", True, None, 50.0),
+    ("gemma2_2b local", (1, 8192, 8, 4, 256), "bfloat16", True, 4096, 50.0),
+    ("qwen2_5_3b", (1, 8192, 16, 2, 128), "bfloat16", True, None, None),
+]
+
+
+def library_call(q, k, v, causal, window, cap, compiled_flex):
+    """One PyTorch call that computes the same attention, over the (B, heads,
+    S, hd) views with GQA on: `scaled_dot_product_attention` with the
+    causal/window mask, or, with a softcap, `flex_attention` (compiled) with
+    cap * tanh(s / cap) as its score_mod and the mask as its block mask."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import create_block_mask
+
+    S = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if cap is not None:
+        def keep(b, h, qi, ki):
+            m = (ki <= qi) if causal else (ki >= 0)
+            return m & (qi - ki < window) if window is not None else m
+
+        blocks = create_block_mask(keep, None, None, S, S, device=q.device)
+        score = lambda s, b, h, qi, ki: cap * torch.tanh(s / cap)
+        return lambda: compiled_flex(qt, kt, vt, score_mod=score, block_mask=blocks,
+                                     enable_gqa=True).transpose(1, 2)
+    mask = None
+    if window is not None:
+        pos = torch.arange(S, device=q.device)
+        mask = pos[:, None] - pos[None, :] < window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True,
+    ).transpose(1, 2)
+
+
+def phase_flash(device):
+    """Phase 4: the flash kernel against its plain version, timed."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models.attention import flash_attention as plain_flash
+
+    compiled_flex = torch.compile(flex_attention, dynamic=False)
+    gen = torch.Generator(device=device).manual_seed(4321)
+    cases = []
+    for name, (B, S, H, KV, hd), dt, causal, window, cap in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=device).to(dtype)
+                   for n in (H, KV, KV))
+        pos = torch.arange(S, dtype=torch.int32, device=device)
+        run_k = lambda: kernel.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+        run_p = lambda: plain_flash(q, k, v, q_positions=pos, kv_positions=pos,
+                                    causal=causal, window=window, cap=cap)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[dt]
+        check(bool(torch.isfinite(got.float()).all()), f"flash[{name}]: non-finite output")
+        check(got.dtype == dtype and got.shape == want.shape, f"flash[{name}]: dtype or shape")
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= atol + rtol * want.float().abs()).all()),
+              f"flash[{name}]: max abs err {float(err.max())} beyond atol {atol} + rtol {rtol}")
+        run_l = library_call(q, k, v, causal, window, cap, compiled_flex)
+        library = "flex_attention" if cap is not None else "scaled_dot_product_attention"
+        lib_err = (run_l().float() - want.float()).abs()
+        tol = LIBRARY_TOL[dt]
+        check(bool((lib_err <= tol + tol * want.float().abs()).all()),
+              f"flash[{name}]: {library} differs from the plain version by {float(lib_err.max())}")
+        big = S >= 4096
+        reps, iters = (2, 3) if big else (20, 20)
+        rec = dict(case=name, shape=[B, S, H, KV, hd], dtype=dt, causal=causal, window=window,
+                   cap=cap, atol=atol, rtol=rtol, max_abs_err=float(err.max()),
+                   out_mean_abs=float(want.float().abs().mean()),
+                   out_mean_abs_last_row=float(want[:, -1].float().abs().mean()),
+                   ms=graph_ms(run_k, reps, iters), plain_ms=graph_ms(run_p, reps, iters),
+                   library=library, library_ms=graph_ms(run_l, reps, iters),
+                   library_max_abs_err=float(lib_err.max()))
+        rec["bound_ms"], rec["bound_by"] = flash_bound(B, S, H, KV, hd, dtype, causal, window)
+        cases.append(rec)
+        print(f"flash[{name}] {tuple(rec['shape'])} {dt}: kernel {rec['ms']:.5f} ms, plain "
+              f"{rec['plain_ms']:.5f} ms, {library} {rec['library_ms']:.5f} ms, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); max abs err "
+              f"{rec['max_abs_err']:.3g} (mean |out| {rec['out_mean_abs']:.3g}, last row "
+              f"{rec['out_mean_abs_last_row']:.3g}; {library} {rec['library_max_abs_err']:.3g})",
+              flush=True)
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_lm(device):
+    """Phases 5 and 6: full-width Gemma-2 2B prefill through the kernel, and
+    `ServeLoop` on the same model. Returns (report, flash launches)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.fedsem_objective import kernel as objective_kernel
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import model as M
+
+    cfg = get_config("gemma2_2b")
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma2_2b is not the bf16 26-layer config")
+    S, seed = LM_TOKENS, 0
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    init_s = time.perf_counter() - t0
+    print(f"gemma2_2b: {n_params / 1e9:.4f} B parameters in bf16 on the card "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), init {init_s:.2f} s", flush=True)
+    data = torch.Generator(device=device).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=data, device=device)
+    prompts = torch.randint(0, cfg.vocab, (8, 8), generator=data, device=device).tolist()
+
+    kernel.launches = objective_kernel.launches = 0      # the LM path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_k = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = kernel.launches
+    loop = ServeLoop(cfg, params, batch_slots=4, max_len=256)
+    t0 = time.perf_counter()
+    results, stats = loop.run(prompts, max_new=16)
+    serve_s = time.perf_counter() - t0
+    launches = kernel.launches                            # ... and ends here
+    check(objective_kernel.launches == 0, "the LM path launched the objective kernel")
+    check(prefill_launches == cfg.n_layers,
+          f"prefill launched the flash kernel {prefill_launches} times, want {cfg.n_layers}")
+    check(launches == prefill_launches, "ServeLoop launched the flash kernel")
+    check(tuple(logits_k.shape) == (1, S, cfg.vocab), f"prefill logits shape {tuple(logits_k.shape)}")
+    check(bool(torch.isfinite(logits_k).all()), "prefill logits are not finite")
+    check(sorted(results) == list(range(8)), f"ServeLoop finished requests {sorted(results)}")
+    for i, toks in results.items():
+        check(len(toks) == 16 and all(0 <= t < cfg.vocab for t in toks),
+              f"ServeLoop request {i}: {len(toks)} tokens, want 16 in [0, {cfg.vocab})")
+    ms_step = 1e3 * sum(stats["step_times"]) / stats["steps"]
+    print(f"prefill(use_kernel=True) B=1 S={S}: {prefill_s:.3f} s wall (first call), "
+          f"{prefill_launches} flash launches, finite logits", flush=True)
+    print(f"ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in {serve_s:.3f} s, "
+          f"{ms_step:.2f} ms/step", flush=True)
+
+    # the yardsticks: the plain attention in bf16, and the same model in float32
+    rows = torch.cat([torch.arange(0, S, 64, device=device), torch.tensor([S - 1], device=device)])
+    timed = {}
+
+    def run(p, c, use_kernel, name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = M.prefill(p, c, {"tokens": tokens}, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        timed[name] = time.perf_counter() - t
+        sub = out[0, rows].float().clone()
+        del out
+        return sub
+
+    sub_k = logits_k[0, rows].float().clone()
+    del logits_k
+    run(params, cfg, True, "kernel_s")                    # a second, warm call
+    sub_p = run(params, cfg, False, "plain_s")
+    del params, loop
+    torch.cuda.empty_cache()
+    cfg32 = cfg.scaled(dtype="float32")
+    params32 = M.init_params(cfg32, torch.Generator(device=device).manual_seed(seed))
+    sub_f = run(params32, cfg32, False, "float32_plain_s")
+    del params32
+    torch.cuda.empty_cache()
+    gap_kp = float((sub_k - sub_p).abs().max())
+    gap_pf = float((sub_p - sub_f).abs().max())
+    gap_kf = float((sub_k - sub_f).abs().max())
+    print(f"prefill logits at {rows.numel()} positions (|logit| <= {float(sub_f.abs().max()):.3f}): "
+          f"kernel vs plain bf16 {gap_kp:.5g}, plain bf16 vs float32 {gap_pf:.5g}, "
+          f"kernel vs float32 {gap_kf:.5g}; wall: kernel {timed['kernel_s']:.3f} s, "
+          f"plain {timed['plain_s']:.3f} s, float32 plain {timed['float32_plain_s']:.3f} s", flush=True)
+    check(gap_kp <= gap_pf,
+          f"kernel prefill differs from the plain one by {gap_kp}, more than bf16 rounding ({gap_pf})")
+    report = dict(params=n_params, init_s=init_s, prefill_first_s=prefill_s, **timed,
+                  prefill_launches=prefill_launches, gap_kernel_plain=gap_kp,
+                  gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
+                  serve_steps=stats["steps"], serve_s=serve_s, serve_ms_per_step=ms_step)
+    return report, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=pathlib.Path, help="also write the full report as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one short solve per config (device busy share)")
     args = ap.parse_args()
+    # torch.compile's caches (phase 4's flex_attention) stay inside the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / "torch_compile" / sub))
 
     import torch
 
@@ -332,20 +593,25 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 1: build
+    # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    path, log = kernel.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.build) for k in (kernel, flash_kernel)]
+        built = [b.result() for b in builds]
     kernel.load()
+    flash_kernel.load()
     build_s = time.perf_counter() - t0
-    print(f"build: {path.name} in {build_s:.2f} s", flush=True)
-    for line in log.strip().splitlines():
-        print(f"  ptxas: {line.strip()}")
+    for path, log in built:
+        print(f"build: {path.name} (all builds together: {build_s:.2f} s)", flush=True)
+        for line in log.strip().splitlines():
+            print(f"  ptxas: {line.strip()}")
 
     # phase 2: kernel vs plain version
     cases = phase_kernel(device)
@@ -356,11 +622,18 @@ def main() -> int:
               f"{c['wrapper_ms']:.5f} ms, plain {c['plain_eager_ms']:.5f} ms; "
               f"max abs err {c['max_abs_err']:.3g}", flush=True)
 
-    # phase 3: the slice
+    # phase 3: the allocator slice
     solves, launches = phase_slice(device)
     profiled = phase_profile(device) if args.profile else None
 
+    # phase 4: the flash kernel vs its plain version
+    flash_cases = phase_flash(device)
+
+    # phases 5 and 6: the LM slice (prefill, then ServeLoop)
+    lm, flash_launches = phase_lm(device)
+
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
+    main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
     record = {"kernels": [{
         "name": "fedsem_objective_batch",
         "route": "cuda",
@@ -373,6 +646,18 @@ def main() -> int:
         "bound_ms": trace_case["bound_ms"],
         "bound_by": trace_case["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+        "launches": flash_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
+        "ms": main_flash["ms"],
+        "plain_ms": main_flash["plain_ms"],
+        "bound_ms": main_flash["bound_ms"],
+        "bound_by": main_flash["bound_by"],
+        "library_ms": main_flash["library_ms"],
     }]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -383,7 +668,7 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             dict(build_s=build_s, cases=cases, solves=solves, profile=profiled,
-                 record=record, card=smi), indent=1))
+                 flash_cases=flash_cases, lm=lm, record=record, card=smi), indent=1))
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry state between numpy and the port's dataclasses.
+"""Carry state between numpy and the port's dataclasses and modules.
 
 The parity tests make one set of numpy arrays and hand it to both packages;
 this module is the port's side of that crossing (the JAX side converts its
@@ -52,3 +52,42 @@ def allocation_to_numpy(alloc: Allocation) -> dict:
     return {
         k: getattr(alloc, k).detach().cpu().numpy() for k in ("f", "P", "X", "rho")
     }
+
+
+def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The port's `models.model.LM` from the reference's parameter pytree.
+
+    ``tree`` is `repro.models.model.init_params`'s pytree as numpy arrays:
+    ``embed``, ``final_ln``, optional ``head``, and ``stages[name]["b{j}"]``
+    whose leaves carry a leading period axis. Layer ``offset + period *
+    pattern_len + j`` of the port takes period ``period`` of block ``b{j}``.
+    Arrays go through float32 (exact for bfloat16, which numpy holds as
+    ``ml_dtypes.bfloat16``) and then to the config's dtype.
+    """
+    from .models.layers import dtype_of
+    from .models.model import LM, check_ported
+
+    check_ported(cfg)
+    dev = resolve_device(device)
+    dt = dtype_of(cfg)
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=dt)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return tensor(node)
+
+    layers = []
+    for name, n_periods, _moe in cfg.stages():
+        stage = convert(tree["stages"][name])
+        for period in range(n_periods):
+            for j in range(cfg.pattern_len):
+                block = stage[f"b{j}"]
+                layers.append({
+                    k: ({kk: vv[period] for kk, vv in v.items()} if isinstance(v, dict) else v[period])
+                    for k, v in block.items()
+                })
+    head = tensor(tree["head"]) if "head" in tree else None
+    return LM(cfg, tensor(tree["embed"]), tensor(tree["final_ln"]), layers, head)

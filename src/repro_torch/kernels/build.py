@@ -1,0 +1,81 @@
+"""Build and load the port's CUDA kernels: one helper for every kernel.
+
+Each kernel's ``csrc/*.cu`` is compiled with ``nvcc`` into a shared library
+with a plain C interface under ``build/repro_torch_kernels/`` at first use,
+and loaded with `ctypes`. The library's name carries a hash of the source and
+the flags, so an edited source is rebuilt and never loaded stale. Nothing is
+built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Callable
+
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+#: Hopper (sm_90a), a plain C interface in a shared library, ptxas' report
+BASE_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME``/``$CUDA_PATH``, then ``PATH``, then
+    ``/usr/local/cuda``."""
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (pathlib.Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+class CudaLibrary:
+    """One ``.cu`` source built into a ctypes-bound library at first use.
+
+    ``bind(lib)`` declares ``argtypes``/``restype`` of the library's entry
+    points; it runs once, when the library is loaded.
+    """
+
+    def __init__(self, name: str, source: pathlib.Path, flags: tuple[str, ...],
+                 bind: Callable[[ctypes.CDLL], None]):
+        self.name, self.source, self.flags, self._bind = name, source, flags, bind
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self) -> tuple[pathlib.Path, str]:
+        """Compile the source if needed; return (library, ptxas log)."""
+        tag = hashlib.sha1(self.source.read_bytes() + " ".join(self.flags).encode()).hexdigest()[:12]
+        lib = BUILD_DIR / f"{self.name}-{tag}.so"
+        if lib.exists():
+            return lib, ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+        return lib, proc.stderr
+
+    def load(self) -> ctypes.CDLL:
+        """The bound library, built at first use."""
+        with self._lock:
+            if self._lib is None:
+                path, _ = self.build()
+                lib = ctypes.CDLL(str(path))
+                self._bind(lib)
+                self._lib = lib
+            return self._lib

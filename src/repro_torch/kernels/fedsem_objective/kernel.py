@@ -1,9 +1,8 @@
 """Build, bind and launch the CUDA kernel for the FedSem objective (eq. 13).
 
 ``csrc/objective.cu`` (its header says what it replaces, what bounds it and
-how it is laid out) is compiled with ``nvcc`` into a shared library with a
-plain C interface under ``build/repro_torch_kernels/`` at first use, and
-loaded with `ctypes`. Nothing is built when this module is imported.
+how it is laid out) is built and loaded by `repro_torch.kernels.build` at
+first use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `objective_batch` takes CUDA
 tensors and raises on anything else or on a failed launch. Which inputs
@@ -15,84 +14,38 @@ count).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
 from typing import NamedTuple
 
 import torch
+
+from ..build import BASE_FLAGS, CudaLibrary
 
 #: kernel launches since the counter was last set to 0
 launches = 0
 
 SOURCE = pathlib.Path(__file__).resolve().with_name("csrc") / "objective.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",)
 # dynamic shared memory of a block: six (N,) rows, within the 48 KB default
 _MAX_N = 48 * 1024 // (6 * 4)
 
-_lib = None
-_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.fedsem_objective_batch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 17
+        + [ctypes.c_int] * 3
+        + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if cuda_home and (pathlib.Path(cuda_home) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(cuda_home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/objective.cu`` if needed; return (library, ptxas log).
-
-    The library's name carries a hash of the source and the flags, so an
-    edited source is rebuilt and never loaded stale.
-    """
-    tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"fedsem_objective-{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stderr
-
-
-def load():
-    """The bound library, built at first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            fn = lib.fedsem_objective_batch
-            fn.argtypes = (
-                [ctypes.c_void_p] * 17
-                + [ctypes.c_int] * 3
-                + [ctypes.c_float] * 2
-                + [ctypes.c_int, ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+_LIB = CudaLibrary("fedsem_objective", SOURCE, NVCC_FLAGS, _bind)
+#: compile ``csrc/objective.cu`` if needed; return (library, ptxas log)
+build = _LIB.build
+#: the bound library, built at first use
+load = _LIB.load
 
 
 class Launch(NamedTuple):

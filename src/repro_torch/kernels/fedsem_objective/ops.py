@@ -13,21 +13,9 @@ back.
 """
 from __future__ import annotations
 
-import torch
+from repro_torch.device import wants_kernel
 
 from . import kernel, ref
-
-
-def _use_kernel(use_kernel, x) -> bool:
-    on_cuda = torch.as_tensor(x).is_cuda
-    if use_kernel == "auto":
-        return on_cuda
-    if use_kernel and not on_cuda:
-        raise ValueError(
-            "use_kernel=True needs CUDA tensors; CPU tensors take the plain "
-            "version (use_kernel='auto' or False)"
-        )
-    return bool(use_kernel)
 
 
 def objective_grid(
@@ -42,7 +30,7 @@ def objective_grid(
 ):
     """Objective (eq. 13) for G candidates of one scenario. f/p/r: (G, N);
     rho: (G,). ``dev_mask`` (N,) marks real devices (None = all real)."""
-    if not _use_kernel(use_kernel, f):
+    if not wants_kernel(use_kernel, f):
         return ref.objective_grid(
             f, p, r, rho, c, d, D, C, t_sc_max, f_max,
             xi, eta, kappa1, kappa2, kappa3, accuracy_ab, dev_mask,
@@ -74,7 +62,7 @@ def objective_grid_batch(
     tensors. ``check_feasible=False`` returns the raw eq. 13 score (the
     `system.objective` semantics the allocator's selection uses).
     """
-    if not _use_kernel(use_kernel, f):
+    if not wants_kernel(use_kernel, f):
         return ref.objective_grid_batch(
             f, p, r, rho, c, d, D, C, t_sc_max, f_max,
             kappa1, kappa2, kappa3,

@@ -1,0 +1,304 @@
+// Flash attention, forward, for Hopper (sm_90a).
+//
+// Replaces src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
+// (the Pallas TPU kernel `_kernel`). It computes what that kernel computes:
+//   s = (q . k^T in fp32) * scale, scale = 1/sqrt(hd), then the softcap
+//   cap * tanh(s / cap); keys masked where kpos >= S (the ragged end),
+//   kpos > qpos (causal) or qpos - kpos >= window (sliding window);
+//   an fp32 online softmax over kv tiles; out = acc / max(l, 1e-20), cast to
+//   q's type. GQA: query head h reads kv head h / (H / KV).
+// A masked score is -inf and adds exactly 0 (a row masked so far keeps
+// acc = 0 and l = 0), as in the chunked plain version
+// (repro_torch/models/attention.py:flash_attention).
+//
+// Layout: q (B, S, H, hd), k/v (B, S, KV, hd), out (B, S, H, hd), read and
+// written by stride (the head dim must be contiguous), so the model's layout
+// needs no transpose and no padding: the kernel masks the ragged end of S.
+//
+// What bounds it on this card: the causal (or band) FLOPs, 4 * hd per
+// unmasked (q, k) pair, are far above the ridge point, so the bound is the
+// tensor cores' rate. This first kernel does not reach for it: it is a
+// simple, correct fp32 kernel on the CUDA cores (no mma.sync/wgmma, no TMA),
+// and its loops are bound by shared-memory loads. Making it fast is later work.
+//
+// Design: one block of 256 threads per (64 query rows, head, batch).
+//   * The Q tile is staged once in shared memory as fp32, transposed
+//     ([d][row], one float of padding per row against bank conflicts).
+//   * Kv tiles of 32 keys walk only the band the block can see: [q0 - window
+//     + 1, last qpos] for a causal window, so tiles wholly outside the
+//     causal/window band are skipped. K is staged transposed, V row-major.
+//   * Scores: each thread computes a 2 x 4 tile of q . k over hd.
+//   * Online softmax: 4 threads per row (shuffles), running max m, sum l and
+//     the correction factor in shared memory.
+//   * P V: warp w owns rows 8w..8w+7, lane owns columns lane + 32 i; the
+//     output accumulator (8 x hd/32 floats a thread) lives in registers.
+//   * Shared memory: 26 KB (hd 32) to 142 KB (hd 256): above the 48 KB
+//     default, the launcher raises the block's dynamic shared memory limit
+//     (on every launch, so it holds on whichever device runs it).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 32;        // keys per kv tile
+constexpr int THREADS = 256;  // 8 warps
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int S, H, KV;
+  long long sq[3], sk[3], sv[3], so[3];  // element strides of (batch, seq, head)
+  float scale;
+  int causal;
+  int window;  // <= 0: no window
+  float cap;   // <= 0: no softcap
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <int HD>
+struct Smem {  // sizes in floats
+  static constexpr int Q = HD * (BQ + 1);  // Q tile, transposed: [d][row]
+  static constexpr int K = HD * (BK + 1);  // K tile, transposed: [d][key]
+  static constexpr int V = BK * HD;        // V tile: [key][d]
+  static constexpr int P = BQ * (BK + 1);  // scores, then probabilities: [row][key]
+  static constexpr int TOTAL = Q + K + V + P + 3 * BQ;  // + m, l, correction
+  static constexpr size_t BYTES = sizeof(float) * TOTAL;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
+  constexpr int CPT = HD / 32;  // output columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + Smem<HD>::Q;
+  float* Vs = Ks + Smem<HD>::K;
+  float* Ps = Vs + Smem<HD>::V;
+  float* m_s = Ps + Smem<HD>::P;
+  float* l_s = m_s + BQ;
+  float* c_s = l_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int S = p.S;
+  const int kvh = h / (p.H / p.KV);
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[2];
+  const T* kg = static_cast<const T*>(p.k) + b * p.sk[0] + kvh * p.sk[2];
+  const T* vg = static_cast<const T*>(p.v) + b * p.sv[0] + kvh * p.sv[2];
+  T* og = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[2];
+
+  for (int i = tid; i < BQ * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    const int qpos = q0 + r;
+    Qs[d * (BQ + 1) + r] = qpos < S ? to_f(qg[qpos * p.sq[1] + d]) : 0.f;
+  }
+  if (tid < BQ) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+
+  float acc[8][CPT];
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr)
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) acc[rr][i] = 0.f;
+
+  // the band of keys this block's rows can see
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int k_end = p.causal ? q_last + 1 : S;
+  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  k_begin = (k_begin / BK) * BK;
+
+  const int r0 = 2 * (tid / 8);  // score rows r0, r0 + 1
+  const int c0 = 4 * (tid % 8);  // score columns c0 .. c0 + 3
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = tid; i < BK * HD; i += THREADS) {
+      const int c = i / HD, d = i % HD;
+      const int kpos = k0 + c;
+      float kx = 0.f, vx = 0.f;
+      if (kpos < S) {
+        kx = to_f(kg[kpos * p.sk[1] + d]);
+        vx = to_f(vg[kpos * p.sv[1] + d]);
+      }
+      Ks[d * (BK + 1) + c] = kx;
+      Vs[c * HD + d] = vx;
+    }
+    __syncthreads();
+
+    {  // scores of a 2 x 4 tile, masked
+      float s[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) {
+        const float qa = Qs[d * (BQ + 1) + r0];
+        const float qb = Qs[d * (BQ + 1) + r0 + 1];
+        const float* kr = Ks + d * (BK + 1) + c0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[0][j] += qa * kr[j];
+          s[1][j] += qb * kr[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qpos = q0 + r0 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = k0 + c0 + j;
+          float x = s[i][j] * p.scale;
+          if (p.cap > 0.f) x = p.cap * tanhf(x / p.cap);
+          bool ok = kpos < S;
+          if (p.causal) ok = ok && kpos <= qpos;
+          if (p.window > 0) ok = ok && qpos - kpos < p.window;
+          Ps[(r0 + i) * (BK + 1) + c0 + j] = ok ? x : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+
+    {  // online softmax: 4 threads per row, 8 keys each
+      const int r = tid / 4, sub = tid % 4;
+      float* prow = Ps + r * (BK + 1) + sub * 8;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, prow[j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;  // a row masked so far
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float e = prow[j] == -INFINITY ? 0.f : expf(prow[j] - m_safe);
+        prow[j] = e;
+        sum += e;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      __syncwarp();  // every lane has read m_s[r] before it is written
+      if (sub == 0) {
+        const float corr = m_old == -INFINITY ? 0.f : expf(m_old - m_safe);
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * corr + sum;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P V
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      const float corr = c_s[warp * 8 + rr];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) acc[rr][i] *= corr;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float vv[CPT];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) vv[i] = Vs[c * HD + lane + 32 * i];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const float pr = Ps[(warp * 8 + rr) * (BK + 1) + c];
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) acc[rr][i] += pr * vv[i];
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) {
+    const int r = warp * 8 + rr;
+    const int qpos = q0 + r;
+    if (qpos >= S) continue;
+    const float denom = fmaxf(l_s[r], 1e-20f);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      og[qpos * p.so[1] + lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
+  }
+}
+
+template <typename T, int HD>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, HD>;
+  constexpr size_t bytes = Smem<HD>::BYTES;
+  // on every launch: the limit is held per device, and the call is cheap and
+  // allowed while a graph is being captured
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
+  kernel<<<grid, THREADS, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<T, 32>(p, B, stream);
+    case 64: return launch<T, 64>(p, B, stream);
+    case 128: return launch<T, 128>(p, B, stream);
+    case 256: return launch<T, 256>(p, B, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. Strides are in elements, for the (batch,
+// seq, head) axes; the head dim is contiguous. Returns 0 or the CUDA error of
+// the launch (a refused launch never runs).
+extern "C" int flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int B, int S, int H, int KV, int hd,
+    long long sqb, long long sqs, long long sqh,
+    long long skb, long long sks, long long skh,
+    long long svb, long long svs, long long svh,
+    long long sob, long long sos, long long soh,
+    float scale, int causal, int window, float cap, void* stream) {
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.S = S;
+  p.H = H;
+  p.KV = KV;
+  p.sq[0] = sqb; p.sq[1] = sqs; p.sq[2] = sqh;
+  p.sk[0] = skb; p.sk[1] = sks; p.sk[2] = skh;
+  p.sv[0] = svb; p.sv[1] = svs; p.sv[2] = svh;
+  p.so[0] = sob; p.so[1] = sos; p.so[2] = soh;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = window;
+  p.cap = cap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_hd<float>(p, B, hd, s);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(p, B, hd, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

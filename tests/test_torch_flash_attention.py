@@ -1,0 +1,136 @@
+"""Parity of the port's flash attention with the JAX reference, on the CPU.
+
+On the CPU, `repro_torch.kernels.flash_attention.ops.flash_attention` takes
+the chunked plain version (`repro_torch.models.attention.flash_attention`),
+which is the CUDA kernel's plain version. It is held to the reference's
+Pallas kernel run in interpret mode (`ops.flash_attention(use_pallas=True,
+interpret=True)`) and to the reference's naive oracle, at the JAX tests'
+own tolerance (`tests/test_kernels.py`): 2e-5 for float32 and 2e-2 for
+bfloat16, absolute and relative. The inputs are drawn with numpy and
+rounded to bfloat16 the same way on both sides. The CUDA kernel itself is
+held to the same plain version on the card (`tests/test_torch_kernels_cuda.py`,
+`chip_smoke.py`).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jops, ref as jref
+from repro.models.attention import flash_attention as jflash
+from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.models.attention import flash_attention as plain_flash
+
+jax.config.update("jax_default_matmul_precision", "highest")
+torch.set_num_threads(1)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(seed, B, S, H, KV, hd, dtype):
+    """The same q, k, v for both packages: (jax arrays, torch tensors)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, n, hd)).astype(np.float32) for n in (H, KV, KV)]
+    j = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return j, t
+
+
+def _close(got, want, dtype):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# the cases of tests/test_kernels.py:23-69, and an hd = 256 Gemma-2-like case
+CAUSAL_SHAPES = [
+    (1, 128, 4, 4, 64),      # MHA
+    (2, 256, 4, 2, 64),      # GQA
+    (1, 256, 8, 1, 32),      # MQA, small head
+    (1, 192, 2, 2, 128),     # S not a block multiple
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", CAUSAL_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_causal_matches_pallas_interpret(B, S, H, KV, hd, dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(0, B, S, H, KV, hd, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=True, use_pallas=True,
+                                interpret=True, bq=64, bk=64)
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, dtype)
+    _close(got, jref.naive_attention(jq, jk, jv, causal=True), dtype)
+
+
+@pytest.mark.parametrize("window,cap,causal,shape", [
+    (64, None, True, (2, 256, 4, 2, 64)),        # sliding window
+    (None, 50.0, True, (2, 256, 4, 2, 64)),      # gemma softcap
+    (None, None, False, (2, 256, 4, 2, 64)),     # encoder (bidirectional)
+    (64, 50.0, True, (1, 160, 2, 1, 256)),       # hd 256, window and softcap
+])
+def test_flash_attention_variants_match_pallas_interpret(window, cap, causal, shape):
+    (jq, jk, jv), (q, k, v) = _qkv(1, *shape, "float32")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window, cap=cap,
+                                use_pallas=True, interpret=True, bq=64, bk=64)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    _close(got, want, "float32")
+    _close(got, jref.naive_attention(jq, jk, jv, causal=causal, window=window, cap=cap), "float32")
+
+
+def test_chunked_flash_matches_reference_chunked():
+    """The chunked plain version against the reference's own chunked path,
+    with chunks smaller than S and a window (tests/test_kernels.py:60)."""
+    (jq, jk, jv), (q, k, v) = _qkv(2, 2, 200, 4, 2, 64, "float32")
+    jpos = jnp.arange(200, dtype=jnp.int32)
+    pos = torch.arange(200, dtype=torch.int32)
+    want = jflash(jq, jk, jv, q_positions=jpos, kv_positions=jpos,
+                  causal=True, window=64, q_chunk=64, kv_chunk=64)
+    got = plain_flash(q, k, v, q_positions=pos, kv_positions=pos,
+                      causal=True, window=64, q_chunk=64, kv_chunk=64)
+    _close(got, want, "float32")
+
+
+def test_chunked_flash_masks_invalid_kv_positions():
+    """kv positions < 0 (unwritten ring-buffer slots) add nothing, and a
+    query row with no valid key comes out 0, as in the reference."""
+    (jq, jk, jv), (q, k, v) = _qkv(3, 1, 96, 2, 1, 32, "float32")
+    kvp = np.arange(96, dtype=np.int32)
+    kvp[10:40] = -1
+    qp = np.arange(96, dtype=np.int32)
+    want = jflash(jq, jk, jv, q_positions=jnp.asarray(qp), kv_positions=jnp.asarray(kvp),
+                  causal=True, q_chunk=32, kv_chunk=32)
+    got = plain_flash(q, k, v, q_positions=torch.from_numpy(qp), kv_positions=torch.from_numpy(kvp),
+                      causal=True, q_chunk=32, kv_chunk=32)
+    _close(got, want, "float32")
+    # row 20 sees keys 0..9 and 20 only; a row whose keys are all invalid is 0
+    kvp[:] = -1
+    none = plain_flash(q, k, v, q_positions=torch.from_numpy(qp), kv_positions=torch.from_numpy(kvp),
+                       causal=True, q_chunk=32, kv_chunk=32)
+    assert torch.equal(none, torch.zeros_like(none))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_naive_attention_matches_reference(dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(4, 2, 96, 4, 2, 32, dtype)
+    want = jref.naive_attention(jq, jk, jv, causal=True, window=40, cap=20.0)
+    got = ref.naive_attention(q, k, v, causal=True, window=40, cap=20.0)
+    assert got.dtype == q.dtype
+    _close(got, want, dtype)
+
+
+def test_kernel_on_cpu_tensors_raises():
+    _, (q, k, v) = _qkv(5, 1, 64, 2, 1, 64, "float32")
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA tensors"):
+        ops.flash_attention(q, k, v, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.flash_attention(q, k, v)
+    before = kernel.launches
+    ops.flash_attention(q, k, v)                 # "auto" on the CPU: the plain version
+    assert kernel.launches == before
+
+
+def test_kernel_scale_is_the_plain_versions():
+    for hd in kernel.HEAD_DIMS:
+        plain = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+        assert kernel.scale_of(hd) == float(plain)

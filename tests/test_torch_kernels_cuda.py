@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.fedsem_objective import kernel, ops, ref
+from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as flash_ops
+from repro_torch.models.attention import flash_attention as plain_flash
 from torch_port_util import assert_scores, grid_inputs
 
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
@@ -57,3 +59,84 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         kernel.objective_batch(t[0], t[1][:, :4], *t[2:], None, 1.0, 1.0, 1.0, *AB, xi=XI, eta=ETA)
     with pytest.raises(ValueError, match="is on"):
         kernel.objective_batch(t[0], t[1].cpu(), *t[2:], None, 1.0, 1.0, 1.0, *AB, xi=XI, eta=ETA)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+#: (atol, rtol) per dtype: float32 the JAX tests' 2e-5 (tests/test_kernels.py);
+#: bfloat16 one ulp of the output, since kernel and plain version both work in
+#: float32 on the same inputs and differ only in the output's rounding
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2**-7)}
+
+
+def _qkv(card, seed, B, S, H, KV, hd, dtype):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn((B, S, n, hd), generator=gen, device=card).to(dtype) for n in (H, KV, KV)]
+
+
+def _plain(q, k, v, **kw):
+    pos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    return plain_flash(q, k, v, q_positions=pos, kv_positions=pos, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 128, 4, 4, 64),      # MHA
+    (2, 256, 4, 2, 64),      # GQA
+    (1, 256, 8, 1, 32),      # MQA, small head
+    (1, 192, 2, 2, 128),     # S not a block multiple
+    (2, 300, 8, 4, 256),     # Gemma-2's head dim and GQA ratio
+    (1, 2048, 4, 2, 256),    # long S: the late rows' outputs are small
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain_version(card, B, S, H, KV, hd, dtype):
+    q, k, v = _qkv(card, 21, B, S, H, KV, hd, dtype)
+    before = flash_kernel.launches
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = _plain(q, k, v, causal=True)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, 64, None), (True, None, 50.0), (False, None, None), (False, 48, None),
+    (True, 64, 50.0), (True, 1, None),
+])
+def test_flash_kernel_masks_and_softcap(card, causal, window, cap):
+    q, k, v = _qkv(card, 22, 2, 257, 4, 2, 64, torch.float32)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    want = _plain(q, k, v, causal=causal, window=window, cap=cap)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_inputs(card):
+    """q, k, v as views of one fused projection (the head dim contiguous)."""
+    gen = torch.Generator(device=card).manual_seed(23)
+    fused = torch.randn((2, 200, 4 + 2 + 2, 64), generator=gen, device=card)
+    q, k, v = fused[:, :, :4], fused[:, :, 4:6], fused[:, :, 6:]
+    assert not q.is_contiguous()
+    got = flash_kernel.flash_attention(q, k, v, causal=True, window=50)
+    want = _plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=50)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(card, 24, 1, 64, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_kernel.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="do not match"):
+        flash_kernel.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_kernel.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="not contiguous"):
+        flash_kernel.flash_attention(q, k.transpose(-1, -2).contiguous().transpose(-1, -2), v)
