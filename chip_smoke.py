@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is skipped and nothing runs on
 the CPU in place of the card):
 
-1. build the CUDA kernel of `repro_torch.kernels.fedsem_objective` from the
-   sources in this checkout (nvcc, sm_90a) and print ptxas' report;
-2. hold the kernel against its plain PyTorch version on the card at the
+1. build the CUDA kernels of `repro_torch.kernels` (`fedsem_objective`,
+   `flash_attention`, `rwkv6_scan`) from the sources in this checkout, one
+   nvcc (sm_90a) each, all at once, and print ptxas' report;
+2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
    selection, (48, 1, 10) for the per-iteration trace), at the exhaustive
    sweep's (64, 8192, 8), and `objective_grid` at (G, N) = (1024, 10); with
@@ -46,13 +47,44 @@ the CPU in place of the card):
    The same prefill with the plain attention and the same model in float32
    (plain attention) are the yardsticks: the kernel's logits must lie no
    farther from the plain bf16 logits than the plain bf16 logits lie from
-   the float32 ones (the bf16 rounding of the whole model);
+   the float32 ones (the bf16 rounding of the whole model). In float32,
+   each layer's kernel route must match its plain route on the same input
+   (the plain run's, layer by layer) at the kernels' float32 tolerance
+   (atol and rtol 1e-4), and the kernel prefill's logits must lie no
+   farther from the plain ones than twice the gap a one-ulp perturbation of
+   the embedding table makes (the random-weight model amplifies rounding at
+   its first positions, so a fixed logit tolerance would fail the plain
+   version against itself). One more warm kernel prefill runs under
+   `torch.profiler`: the kernel's device time and launches in the trace,
+   the matrix products' device time and the device's busy time;
 6. `ServeLoop` on the same model: 8 requests of 8 tokens, 4 slots, 16 new
    tokens each, max_len 256; every request must come back with 16 tokens
-   in the vocabulary.
+   in the vocabulary;
+7. the WKV6 kernel of `repro_torch.kernels.rwkv6_scan` against its plain
+   version (the step-by-step recurrence of its ``ref.py``) on the card: the
+   reference's test shapes ((1, 2, 128, 64) and (2, 4, 96, 32), float32 and
+   bfloat16), a ragged S, and the full-width RWKV-6 1.6B layer (B 1,
+   S 4096, H 32, hd 64, in the model's (B, S, H, hd) layout, w near the
+   model's exp(-exp(-6))) all in float32 and in the types the bf16 model
+   hands over (bf16 r/k/v, float32 w and y). Tolerance by y's type,
+   absolute plus relative: float32 the JAX tests' 1e-4; bfloat16 one bf16
+   ulp of the output (rtol 2**-7, atol 1e-5), since kernel and plain
+   version evolve the same float32 state and differ only in the order of
+   the sum over the key index. The kernel is timed on the device
+   (CUDA-graph replay) beside its bound (the function's 5 float32
+   operations per step, key and value column, not the kernel's 7); the plain
+   version by graph replay up to S = 1024 and by events around one eager
+   call at S = 4096 (a graph of its 28,000 launches is not worth its
+   capture). No single PyTorch call computes WKV6;
+8. the RWKV slice: `rwkv6_1_6b` at full width in bfloat16 from a seeded
+   `torch.Generator`; `prefill(use_kernel=True)` on B = 1, S = 4096 tokens
+   must launch the WKV kernel once per layer (24) and give finite logits,
+   with the yardsticks, logit gates and profile of phase 5;
+9. `ServeLoop` on the RWKV model, as phase 6 (decode carries the state
+   through the plain one-step recurrence and launches no kernel).
 
-Each path (3, and 5 + 6) is driven with the kernels' launch counts set to 0
-just before it and read just after. With ``--profile``, one short solve
+Each path (3, 5 + 6, and 8 + 9) is driven with the kernels' launch counts set
+to 0 just before it and read just after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -77,7 +109,27 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-4, 2**-7)}
 #: the library call against the plain version: the JAX tests' tolerance
 LIBRARY_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-LM_TOKENS = 8192                 # phase 5's prefill length (> the 4096 window)
+#: phase 7's (atol, rtol): float32 the JAX tests' 1e-4, bfloat16 one ulp
+WKV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2**-7)}
+#: float32 operations WKV6 needs per (step, key, value column): the FMA of
+#: r_i S_ij into y_j (2), k_i v_j, the FMA w_i S_ij + k_i v_j (2); and per
+#: (step, key) the bonus term's r_i u_i k_i and its sum (3), per (step, value
+#: column) v_j times that sum and its add into y_j (2)
+WKV_OPS, WKV_OPS_KEY, WKV_OPS_COL = 5, 3, 2
+#: phases 5 and 8's float32 gates: each layer's kernel route against its
+#: plain route on the same input at the kernels' float32 (atol, rtol) (the
+#: JAX tests' 1e-4); and the kernel prefill's logits no farther from the
+#: plain prefill's than this many times the gap a one-ulp perturbation of the
+#: embedding table makes (the model's own float32 sensitivity)
+LM_LAYER_TOL = (1e-4, 1e-4)
+LM_F32_ULP_FACTOR = 2.0
+#: the symbol of each LM kernel, as it appears in a profiler trace
+KERNEL_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "rwkv6_scan": "wkv6_fwd_kernel"}
+#: what marks a matrix product's kernel in a trace (cuBLAS and CUTLASS names)
+PRODUCT_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
+#: the LM paths: (arch, prefill length, the kernel its prefill launches per layer)
+LM_PATHS = (("gemma2_2b", 8192, "flash_attention"),   # phases 5-6 (> the 4096 window)
+            ("rwkv6_1_6b", 4096, "rwkv6_scan"))        # phases 8-9 (RWKV-6's training context)
 RTOL, ATOL = 5e-7, 1e-5
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
 #: floating-point operations per (candidate, device) of eq. 13 as the kernel
@@ -247,6 +299,7 @@ def phase_slice(device):
     from repro_torch.core.types import tree_map
     from repro_torch.kernels.fedsem_objective import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.scenarios import get_family
 
     fam = get_family("iid_rayleigh")
@@ -256,7 +309,7 @@ def phase_slice(device):
     configs = {"pgd": AllocatorConfig(inner="pgd"), "sca": AllocatorConfig()}
 
     solves = {}
-    kernel.launches = flash_kernel.launches = 0   # the allocator path starts here
+    kernel.launches = flash_kernel.launches = wkv_kernel.launches = 0   # the allocator path starts here
     for name, cfg in configs.items():
         before = kernel.launches
         torch.cuda.synchronize()
@@ -271,7 +324,8 @@ def phase_slice(device):
         solves[name] = dict(res=res, wall_s=wall, launches=n)
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
     main_path_launches = kernel.launches     # ... and ends here
-    check(flash_kernel.launches == 0, "the allocator path launched the flash kernel")
+    check(flash_kernel.launches == wkv_kernel.launches == 0,
+          "the allocator path launched the flash or the WKV kernel")
 
     for name, cfg in configs.items():
         torch.cuda.synchronize()
@@ -479,32 +533,175 @@ def phase_flash(device):
     return cases
 
 
-def phase_lm(device):
-    """Phases 5 and 6: full-width Gemma-2 2B prefill through the kernel, and
-    `ServeLoop` on the same model. Returns (report, flash launches)."""
+def wkv_bound(B, H, S, hd, dtype, w_dtype, out_dtype):
+    """(ms, 'bytes'|'operations'): the float32 operations the function needs
+    over the float32 peak, against r, k, v (``dtype``) and w read once, y
+    written once and u (float32) read once. The function needs fewer
+    operations than the kernel evaluates: y_j = sum_i r_i S_ij + v_j
+    sum_i r_i u_i k_i factors the bonus term out of the (key, column) loop."""
+    import torch
+
+    size = lambda dt: torch.tensor([], dtype=dt).element_size()
+    nbytes = B * H * S * hd * (3 * size(dtype) + size(w_dtype) + size(out_dtype)) + 4 * H * hd
+    flops = B * H * S * (WKV_OPS * hd * hd + (WKV_OPS_KEY + WKV_OPS_COL) * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: phase 7's cases: (name, (B, H, S, hd), type of r/k/v, of w, of y); the
+#: full-width cases in the model's layout with w near its exp(-exp(-6)):
+#: all float32, and the types the bf16 model hands over (the main path's)
+WKV_CASES = [
+    *((f"reference (1, 2, 128, 64) {dt}", (1, 2, 128, 64), dt, dt, dt) for dt in ("float32", "bfloat16")),
+    *((f"reference (2, 4, 96, 32) {dt}", (2, 4, 96, 32), dt, dt, dt) for dt in ("float32", "bfloat16")),
+    *((f"ragged S {dt}", (2, 3, 77, 64), dt, dt, dt) for dt in ("float32", "bfloat16")),
+    ("rwkv6_1_6b layer float32", (1, 32, 4096, 64), "float32", "float32", "float32"),
+    ("rwkv6_1_6b layer", (1, 32, 4096, 64), "bfloat16", "float32", "float32"),
+]
+#: the phase-7 case at the shape and types the RWKV prefill launches the kernel with
+WKV_MAIN = "rwkv6_1_6b layer"
+
+
+def phase_wkv(device):
+    """Phase 7: the WKV6 kernel against its plain version, timed."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel, ref
+
+    gen = torch.Generator(device=device).manual_seed(2468)
+    cases = []
+    for name, (B, H, S, hd), dt, dt_w, dt_y in WKV_CASES:
+        dtype, w_dtype, out_dtype = (getattr(torch, t) for t in (dt, dt_w, dt_y))
+        full = name.startswith("rwkv6_1_6b layer")
+        # (B, S, H, hd) tensors seen as (B, H, S, hd) views, as the model hands them over
+        draw = lambda: torch.randn((B, S, H, hd), generator=gen, device=device).transpose(1, 2)
+        r, k, v = draw(), draw(), draw()
+        if full:
+            w = torch.exp(-torch.exp(-6.0 + 0.5 * draw()))
+        else:   # the reference test's law
+            w = torch.sigmoid(draw()) * 0.5 + 0.45
+        u = torch.randn((H, hd), generator=gen, device=device)
+        r, k, v, u = (x.to(dtype) for x in (r, k, v, u))
+        w = w.to(w_dtype)
+        run_k = lambda: kernel.rwkv6_scan(r, k, v, w, u, out_dtype)
+        run_p = lambda: ref.rwkv6_scan(r, k, v, w, u, out_dtype=out_dtype)[0]
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        atol, rtol = WKV_TOL[dt_y]
+        check(bool(torch.isfinite(got.float()).all()), f"wkv[{name}]: non-finite output")
+        check(got.dtype == out_dtype and got.shape == want.shape, f"wkv[{name}]: dtype or shape")
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= atol + rtol * want.float().abs()).all()),
+              f"wkv[{name}]: max abs err {float(err.max())} beyond atol {atol} + rtol {rtol}")
+        rec = dict(case=name, shape=[B, H, S, hd], dtype=dt, w_dtype=dt_w, out_dtype=dt_y,
+                   atol=atol, rtol=rtol,
+                   max_abs_err=float(err.max()), out_mean_abs=float(want.float().abs().mean()),
+                   w_mean=float(w.float().mean()), ms=graph_ms(run_k))
+        if S <= 1024:
+            rec["plain_ms"], rec["plain_timing"] = graph_ms(run_p, 1, 5), "graph replay"
+        else:
+            rec["plain_ms"], rec["plain_timing"] = cuda_ms(run_p, 1), "events around one eager call"
+        rec["bound_ms"], rec["bound_by"] = wkv_bound(B, H, S, hd, dtype, w_dtype, out_dtype)
+        cases.append(rec)
+        print(f"wkv[{name}] {tuple(rec['shape'])} r/k/v {dt}, w {dt_w}, y {dt_y}: kernel {rec['ms']:.5f} ms, plain "
+              f"{rec['plain_ms']:.5f} ms ({rec['plain_timing']}), bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}); max abs err {rec['max_abs_err']:.3g} (mean |y| "
+              f"{rec['out_mean_abs']:.3g}, mean w {rec['w_mean']:.5f})", flush=True)
+    torch.cuda.synchronize()
+    return cases
+
+
+def profile_prefill(M, params, cfg, tokens, kernel_name):
+    """One warm kernel prefill under `torch.profiler`: its kernel's device
+    time and launches, the matrix products' device time, the device's busy
+    time (its own events only, as in `phase_profile`) and the top entries."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del out
+    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
+    mine = [e for e in on_dev if KERNEL_SYMBOLS[kernel_name] in e.key]
+    products = [e for e in on_dev if any(m in e.key.lower() for m in PRODUCT_MARKS)]
+    busy = dev_ms(on_dev)
+    check(busy > 0, f"profile[{cfg.name}]: the profiler saw no device time")
+    count = sum(e.count for e in mine)
+    check(count == cfg.n_layers,
+          f"profile[{cfg.name}]: the trace holds {count} {kernel_name} launches, want {cfg.n_layers}")
+    top = sorted(on_dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return dict(wall_profiled_s=wall, device_busy_ms=busy, kernel_device_ms=dev_ms(mine),
+                kernel_launches=count, products_device_ms=dev_ms(products),
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def layer_by_layer(M, params, cfg, tokens, rows):
+    """The plain prefill run one layer at a time, each layer also through its
+    kernel route on the same input (the model's own layer functions). Returns
+    (plain logits at ``rows``, per layer (max |kernel - plain|, the largest
+    ratio of that gap to atol + rtol |plain|))."""
+    atol, rtol = LM_LAYER_TOL
+    x, positions = M._embed(params, cfg, {"tokens": tokens})
+    gaps = []
+    for blk in params.layers:
+        want = M._apply_block(blk, cfg, x, positions, False)
+        got = M._apply_block(blk, cfg, x, positions, True)
+        err = (got - want).abs()
+        gaps.append((float(err.max()), float((err / (atol + rtol * want.abs())).max())))
+        del got, err
+        x = want
+    return M._head(params, cfg, x[:, rows])[0].float(), gaps
+
+
+def perturb_one_ulp(params, seed):
+    """Move every entry of the embedding table one ulp up or down at random."""
+    import torch
+
+    e = params.embed
+    gen = torch.Generator(device=e.device).manual_seed(seed)
+    up = torch.rand(e.shape, generator=gen, device=e.device) < 0.5
+    inf = torch.tensor(float("inf"), dtype=e.dtype, device=e.device)
+    with torch.no_grad():
+        e.copy_(torch.nextafter(e, torch.where(up, inf, -inf)))
+
+
+def phase_lm(device, arch, S, kernel_name):
+    """Full-width ``arch`` prefill of S tokens through its kernel (one launch
+    per layer) and `ServeLoop` on the same model (phases 5-6 and 8-9).
+    Returns (report, the kernel's launches on the path)."""
+    import importlib
+
     import torch
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.fedsem_objective import kernel as objective_kernel
-    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import model as M
 
-    cfg = get_config("gemma2_2b")
-    check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma2_2b is not the bf16 26-layer config")
-    S, seed = LM_TOKENS, 0
+    kernels = {name: importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+               for name in ("fedsem_objective", "flash_attention", "rwkv6_scan")}
+    kernel = kernels[kernel_name]
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16", f"{arch} is not a bf16 config")
+    seed = 0
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     init_s = time.perf_counter() - t0
-    print(f"gemma2_2b: {n_params / 1e9:.4f} B parameters in bf16 on the card "
+    print(f"{arch}: {n_params / 1e9:.4f} B parameters in bf16 on the card "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), init {init_s:.2f} s", flush=True)
     data = torch.Generator(device=device).manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab, (1, S), generator=data, device=device)
     prompts = torch.randint(0, cfg.vocab, (8, 8), generator=data, device=device).tolist()
 
-    kernel.launches = objective_kernel.launches = 0      # the LM path starts here
+    for k in kernels.values():                            # the path starts here
+        k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits_k = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
@@ -516,10 +713,11 @@ def phase_lm(device):
     results, stats = loop.run(prompts, max_new=16)
     serve_s = time.perf_counter() - t0
     launches = kernel.launches                            # ... and ends here
-    check(objective_kernel.launches == 0, "the LM path launched the objective kernel")
+    others = {name: k.launches for name, k in kernels.items() if k is not kernel}
+    check(not any(others.values()), f"the {arch} path launched other kernels: {others}")
     check(prefill_launches == cfg.n_layers,
-          f"prefill launched the flash kernel {prefill_launches} times, want {cfg.n_layers}")
-    check(launches == prefill_launches, "ServeLoop launched the flash kernel")
+          f"{arch} prefill launched the {kernel_name} kernel {prefill_launches} times, want {cfg.n_layers}")
+    check(launches == prefill_launches, f"{arch} ServeLoop launched the {kernel_name} kernel")
     check(tuple(logits_k.shape) == (1, S, cfg.vocab), f"prefill logits shape {tuple(logits_k.shape)}")
     check(bool(torch.isfinite(logits_k).all()), "prefill logits are not finite")
     check(sorted(results) == list(range(8)), f"ServeLoop finished requests {sorted(results)}")
@@ -527,12 +725,12 @@ def phase_lm(device):
         check(len(toks) == 16 and all(0 <= t < cfg.vocab for t in toks),
               f"ServeLoop request {i}: {len(toks)} tokens, want 16 in [0, {cfg.vocab})")
     ms_step = 1e3 * sum(stats["step_times"]) / stats["steps"]
-    print(f"prefill(use_kernel=True) B=1 S={S}: {prefill_s:.3f} s wall (first call), "
-          f"{prefill_launches} flash launches, finite logits", flush=True)
-    print(f"ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in {serve_s:.3f} s, "
-          f"{ms_step:.2f} ms/step", flush=True)
+    print(f"{arch} prefill(use_kernel=True) B=1 S={S}: {prefill_s:.3f} s wall (first call), "
+          f"{prefill_launches} {kernel_name} launches, finite logits", flush=True)
+    print(f"{arch} ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in "
+          f"{serve_s:.3f} s, {ms_step:.2f} ms/step", flush=True)
 
-    # the yardsticks: the plain attention in bf16, and the same model in float32
+    # the yardsticks: the plain kernels' versions in bf16, and the same model in float32
     rows = torch.cat([torch.arange(0, S, 64, device=device), torch.tensor([S - 1], device=device)])
     timed = {}
 
@@ -549,26 +747,62 @@ def phase_lm(device):
     sub_k = logits_k[0, rows].float().clone()
     del logits_k
     run(params, cfg, True, "kernel_s")                    # a second, warm call
+    prof = profile_prefill(M, params, cfg, tokens, kernel_name)
+    warm_ms = 1e3 * timed["kernel_s"]
+    print(f"{arch} warm prefill, profiled ({prof['wall_profiled_s']:.3f} s wall): device busy "
+          f"{prof['device_busy_ms']:.2f} ms = {100 * prof['device_busy_ms'] / warm_ms:.2f}% of "
+          f"the unprofiled {warm_ms:.2f} ms; {prof['kernel_launches']} {kernel_name} launches "
+          f"{prof['kernel_device_ms']:.3f} ms = {100 * prof['kernel_device_ms'] / warm_ms:.2f}% of "
+          f"the wall, {100 * prof['kernel_device_ms'] / prof['device_busy_ms']:.2f}% of busy; "
+          f"matrix products {prof['products_device_ms']:.3f} ms = "
+          f"{100 * prof['products_device_ms'] / prof['device_busy_ms']:.2f}% of busy", flush=True)
+    for key, ms, count in prof["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<6d} {key[:100]}")
     sub_p = run(params, cfg, False, "plain_s")
     del params, loop
     torch.cuda.empty_cache()
     cfg32 = cfg.scaled(dtype="float32")
     params32 = M.init_params(cfg32, torch.Generator(device=device).manual_seed(seed))
-    sub_f = run(params32, cfg32, False, "float32_plain_s")
+    sub_fk = run(params32, cfg32, True, "float32_kernel_s")
+    t0 = time.perf_counter()
+    sub_f, layer_gaps = layer_by_layer(M, params32, cfg32, tokens, rows)
+    torch.cuda.synchronize()
+    timed["float32_layer_by_layer_s"] = time.perf_counter() - t0
+    perturb_one_ulp(params32, seed + 2)
+    sub_fq = run(params32, cfg32, False, "float32_ulp_plain_s")
     del params32
     torch.cuda.empty_cache()
-    gap_kp = float((sub_k - sub_p).abs().max())
-    gap_pf = float((sub_p - sub_f).abs().max())
-    gap_kf = float((sub_k - sub_f).abs().max())
-    print(f"prefill logits at {rows.numel()} positions (|logit| <= {float(sub_f.abs().max()):.3f}): "
-          f"kernel vs plain bf16 {gap_kp:.5g}, plain bf16 vs float32 {gap_pf:.5g}, "
-          f"kernel vs float32 {gap_kf:.5g}; wall: kernel {timed['kernel_s']:.3f} s, "
-          f"plain {timed['plain_s']:.3f} s, float32 plain {timed['float32_plain_s']:.3f} s", flush=True)
+    gap = lambda a, b: float((a - b).abs().max())
+    worst_row = lambda a, b: int(rows[int((a - b).abs().amax(-1).argmax())])
+    gap_kp, gap_pf, gap_kf = gap(sub_k, sub_p), gap(sub_p, sub_f), gap(sub_k, sub_f)
+    gap_f32, gap_ulp = gap(sub_fk, sub_f), gap(sub_fq, sub_f)
+    layer_err = max(g[0] for g in layer_gaps)
+    layer_ratio = max(g[1] for g in layer_gaps)
+    print(f"{arch} prefill logits at {rows.numel()} positions (|logit| <= "
+          f"{float(sub_f.abs().max()):.3f}): kernel vs plain bf16 {gap_kp:.5g} (position "
+          f"{worst_row(sub_k, sub_p)}), plain bf16 vs float32 {gap_pf:.5g} (position "
+          f"{worst_row(sub_p, sub_f)}), kernel vs float32 {gap_kf:.5g}; in float32: kernel vs "
+          f"plain {gap_f32:.5g} (position {worst_row(sub_fk, sub_f)}), one-ulp embedding vs "
+          f"plain {gap_ulp:.5g} (position {worst_row(sub_fq, sub_f)}); each layer's kernel route "
+          f"on the plain input: max abs err {layer_err:.3g}, at most {layer_ratio:.3g} of atol "
+          f"{LM_LAYER_TOL[0]} + rtol {LM_LAYER_TOL[1]}; wall: kernel {timed['kernel_s']:.3f} s, "
+          f"plain {timed['plain_s']:.3f} s, float32 kernel {timed['float32_kernel_s']:.3f} s, "
+          f"float32 layer by layer {timed['float32_layer_by_layer_s']:.3f} s, float32 plain "
+          f"{timed['float32_ulp_plain_s']:.3f} s", flush=True)
     check(gap_kp <= gap_pf,
-          f"kernel prefill differs from the plain one by {gap_kp}, more than bf16 rounding ({gap_pf})")
-    report = dict(params=n_params, init_s=init_s, prefill_first_s=prefill_s, **timed,
-                  prefill_launches=prefill_launches, gap_kernel_plain=gap_kp,
-                  gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
+          f"{arch}: kernel prefill differs from the plain one by {gap_kp}, more than bf16 rounding ({gap_pf})")
+    check(layer_ratio <= 1.0,
+          f"{arch}: a float32 layer's kernel route differs from its plain route by {layer_err} "
+          f"({layer_ratio} of the tolerance)")
+    check(gap_f32 <= LM_F32_ULP_FACTOR * gap_ulp,
+          f"{arch}: float32 kernel prefill differs from the plain one by {gap_f32}, more than "
+          f"{LM_F32_ULP_FACTOR} x a one-ulp embedding perturbation's {gap_ulp}")
+    report = dict(arch=arch, tokens=S, params=n_params, init_s=init_s, prefill_first_s=prefill_s,
+                  **timed, prefill_launches=prefill_launches, profile=prof,
+                  kernel_share_of_warm_prefill=prof["kernel_device_ms"] / warm_ms,
+                  gap_kernel_plain=gap_kp, gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
+                  gap_float32_kernel_plain=gap_f32, gap_float32_one_ulp=gap_ulp,
+                  layer_gaps=layer_gaps,
                   serve_steps=stats["steps"], serve_s=serve_s, serve_ms_per_step=ms_step)
     return report, launches
 
@@ -594,6 +828,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.fedsem_objective import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -602,11 +837,11 @@ def main() -> int:
 
     # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.build) for k in (kernel, flash_kernel)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(k.build) for k in (kernel, flash_kernel, wkv_kernel)]
         built = [b.result() for b in builds]
-    kernel.load()
-    flash_kernel.load()
+    for k in (kernel, flash_kernel, wkv_kernel):
+        k.load()
     build_s = time.perf_counter() - t0
     for path, log in built:
         print(f"build: {path.name} (all builds together: {build_s:.2f} s)", flush=True)
@@ -629,8 +864,15 @@ def main() -> int:
     # phase 4: the flash kernel vs its plain version
     flash_cases = phase_flash(device)
 
-    # phases 5 and 6: the LM slice (prefill, then ServeLoop)
-    lm, flash_launches = phase_lm(device)
+    # phases 5 and 6: the Gemma-2 slice (prefill, then ServeLoop)
+    lm, flash_launches = phase_lm(device, *LM_PATHS[0])
+
+    # phase 7: the WKV6 kernel vs its plain version
+    wkv_cases = phase_wkv(device)
+
+    # phases 8 and 9: the RWKV slice (prefill, then ServeLoop)
+    rwkv, wkv_launches = phase_lm(device, *LM_PATHS[1])
+    main_wkv = next(c for c in wkv_cases if c["case"] == WKV_MAIN)
 
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
@@ -658,6 +900,18 @@ def main() -> int:
         "bound_ms": main_flash["bound_ms"],
         "bound_by": main_flash["bound_by"],
         "library_ms": main_flash["library_ms"],
+    }, {
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:47",
+        "launches": wkv_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in wkv_cases),
+        "ms": main_wkv["ms"],
+        "plain_ms": main_wkv["plain_ms"],
+        "bound_ms": main_wkv["bound_ms"],
+        "bound_by": main_wkv["bound_by"],
+        "library_ms": None,
     }]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -668,7 +922,8 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             dict(build_s=build_s, cases=cases, solves=solves, profile=profiled,
-                 flash_cases=flash_cases, lm=lm, record=record, card=smi), indent=1))
+                 flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
+                 record=record, card=smi), indent=1))
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

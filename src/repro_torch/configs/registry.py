@@ -25,10 +25,9 @@ ARCHS = (
     "fedsem_autoencoder",   # the paper's own model (not an LM config)
 )
 #: architectures the port runs
-PORTED = ("gemma2_2b", "qwen2_5_3b")
+PORTED = ("gemma2_2b", "qwen2_5_3b", "rwkv6_1_6b")
 #: where each other architecture is ported (ROADMAP.md §1)
 NOT_PORTED = {
-    "rwkv6_1_6b": "item 4 (RWKV6 blocks, models/rwkv.py, the rwkv6_scan kernel)",
     "jamba_1_5_large_398b": "item 5 (Mamba blocks, models/mamba.py, the mamba_scan kernel)",
     "arctic_480b": "item 12 (MoE and MLA)",
     "deepseek_v3_671b": "item 12 (MoE and MLA)",

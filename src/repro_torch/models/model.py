@@ -1,8 +1,9 @@
 """Model assembly: embed -> layers -> final norm -> head; prefill and decode.
 
 Counterpart of `repro.models.model` for ``attn``/``attn_local`` blocks with
-a dense FFN. The reference stacks each stage's per-period parameters and
-scans over them; here every layer is its own `Block` in an `nn.ModuleList`,
+a dense FFN and for ``rwkv`` blocks (time mix and channel mix). The
+reference stacks each stage's per-period parameters and scans over them;
+here every layer is its own `Block` in an `nn.ModuleList`,
 in the reference's order (stage by stage, period by period, pattern position
 by pattern position), with the reference's parameter names (``ln``,
 ``attn.wq``, ``ffn.w_gate``, ...). Parameters are built from plain dicts of
@@ -14,8 +15,8 @@ Entry points:
   * prefill(params, cfg, batch)               -> logits
   * decode_step(params, cfg, token, pos, cache) -> (logits, cache)
 
-MoE and MLA layers, ``mamba`` and ``rwkv`` blocks, frontends and meshes are
-not ported yet and raise `NotImplementedError` (ROADMAP.md §1).
+MoE and MLA layers, ``mamba`` blocks, frontends and meshes are not ported yet
+and raise `NotImplementedError` (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from torch import nn
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import rwkv as rwk
 from .config import ModelConfig
 from .layers import dense_init, dtype_of, rms_norm, softcap
 
@@ -35,7 +37,8 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 class Block(nn.Module):
     """One layer: ``ln``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, optional
     ``post_ln``, ``ffn_ln``, ``ffn`` {w_gate, w_up, w_down | w_up, b_up,
-    w_down, b_down}, optional ``post_ffn_ln``."""
+    w_down, b_down}, optional ``post_ffn_ln``; an ``rwkv`` layer has ``ln``,
+    ``rwkv`` (time and channel mix), optional ``post_ln`` and ``ffn_ln``."""
 
     def __init__(self, kind: str, p: dict):
         super().__init__()
@@ -75,11 +78,9 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: ROADMAP.md §1, item 11")
     for kind in cfg.block_pattern:
-        if kind == "rwkv":
-            raise NotImplementedError(f"{cfg.name}: rwkv blocks are not ported yet: ROADMAP.md §1, item 4")
         if kind == "mamba":
             raise NotImplementedError(f"{cfg.name}: mamba blocks are not ported yet: ROADMAP.md §1, item 5")
-        if kind not in ("attn", "attn_local"):
+        if kind not in ("attn", "attn_local", "rwkv"):
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
 
 
@@ -99,10 +100,16 @@ def _init_block(generator, cfg: ModelConfig, kind: str) -> dict:
     dt = dtype_of(cfg)
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=dt, device=generator.device)
-    p = {"ln": zeros(), "attn": attn.init_attn_params(generator, cfg, dt)}
+    p = {"ln": zeros()}
+    if kind == "rwkv":
+        p["rwkv"] = rwk.init_rwkv_params(generator, cfg, dt)
+    else:
+        p["attn"] = attn.init_attn_params(generator, cfg, dt)
     if cfg.post_norm:
         p["post_ln"] = zeros()
     p["ffn_ln"] = zeros()
+    if kind == "rwkv":  # the channel mix, in ``rwkv``, is its FFN
+        return p
     p["ffn"] = moe_mod.init_dense_ffn(generator, cfg, dt)
     if cfg.post_norm:
         p["post_ffn_ln"] = zeros()
@@ -136,15 +143,28 @@ def _ffn(blk: Block, cfg, x):
     return x + out
 
 
+def _post(blk: Block, cfg, inner):
+    return rms_norm(inner, blk.post_ln, cfg.norm_eps) if cfg.post_norm else inner
+
+
+def _channel_mix(blk: Block, cfg, x, state):
+    """The second residual of an ``rwkv`` block; returns (x, channel state)."""
+    out, c = rwk.channel_mix(blk.rwkv, cfg, rms_norm(x, blk.ffn_ln, cfg.norm_eps), state)
+    return x + out, c
+
+
 def _apply_block(blk: Block, cfg, x, positions, use_kernel):
     h = rms_norm(x, blk.ln, cfg.norm_eps)
+    if blk.kind == "rwkv":
+        # a fresh sequence: both mixes start from the zero state, and their
+        # final states are discarded, as in the reference's forward
+        inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel)
+        return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None)[0]
     inner = attn.gqa_forward(
         blk.attn, cfg, h, positions,
         window=_block_window(cfg, blk.kind), use_kernel=use_kernel,
     )
-    if cfg.post_norm:
-        inner = rms_norm(inner, blk.post_ln, cfg.norm_eps)
-    return _ffn(blk, cfg, x + inner)
+    return _ffn(blk, cfg, x + _post(blk, cfg, inner))
 
 
 def _embed(params: LM, cfg, batch):
@@ -171,9 +191,9 @@ def _no_mesh(mesh):
 
 def forward(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
     """Logits (B, S, V) of ``batch["tokens"]`` (B, S), and the auxiliary loss
-    (0 without MoE). ``use_kernel`` picks the attention: "auto" (the CUDA
-    kernel iff on a card), True (the kernel; CPU tensors raise) or False (the
-    chunked plain version)."""
+    (0 without MoE). ``use_kernel`` picks the attention's and the WKV
+    recurrence's route: "auto" (the CUDA kernels iff on a card), True (the
+    kernels; CPU tensors raise) or False (the plain versions)."""
     _no_mesh(mesh)
     x, positions = _embed(params, cfg, batch)
     for blk in params.layers:
@@ -186,9 +206,11 @@ def forward(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]:
-    """One KV cache per layer (`attention.init_kv_cache`)."""
+    """One cache per layer: a KV cache (`attention.init_kv_cache`), or for an
+    ``rwkv`` layer its state {"shift", "wkv", "shift_c"} (`rwkv.init_rwkv_state`)."""
     dt = dtype_of(cfg)
-    return [attn.init_kv_cache(cfg, batch, max_len, _block_window(cfg, kind), dt, device)
+    return [rwk.init_rwkv_state(cfg, batch, dt, device) if kind == "rwkv"
+            else attn.init_kv_cache(cfg, batch, max_len, _block_window(cfg, kind), dt, device)
             for kind in layer_kinds(cfg)]
 
 
@@ -200,10 +222,14 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None)
     x = params.embed[token]
     for blk, c in zip(params.layers, cache):
         h = rms_norm(x, blk.ln, cfg.norm_eps)
+        if blk.kind == "rwkv":
+            # one step of the plain recurrence from the carried state
+            inner, c_t = rwk.time_mix(blk.rwkv, cfg, h, c)
+            x, c_c = _channel_mix(blk, cfg, x + _post(blk, cfg, inner), c)
+            c.update(c_t, **c_c)
+            continue
         inner, _ = attn.gqa_decode(blk.attn, cfg, h, pos, c, window=_block_window(cfg, blk.kind))
-        if cfg.post_norm:
-            inner = rms_norm(inner, blk.post_ln, cfg.norm_eps)
-        x = _ffn(blk, cfg, x + inner)
+        x = _ffn(blk, cfg, x + _post(blk, cfg, inner))
     return _head(params, cfg, x), cache
 
 

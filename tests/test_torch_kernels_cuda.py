@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels.fedsem_objective import kernel, ops, ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as flash_ops
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel, ops as wkv_ops, ref as wkv_ref
 from repro_torch.models.attention import flash_attention as plain_flash
 from torch_port_util import assert_scores, grid_inputs
 
@@ -140,3 +141,128 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
         flash_kernel.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="not contiguous"):
         flash_kernel.flash_attention(q, k.transpose(-1, -2).contiguous().transpose(-1, -2), v)
+
+
+# ---------------------------------------------------------------------------
+# the WKV6 recurrence
+# ---------------------------------------------------------------------------
+
+#: (atol, rtol) per dtype: float32 the JAX tests' 1e-4; bfloat16 one ulp of
+#: the output, since kernel and plain version evolve the same float32 state
+#: and differ only in the order of the sum over the key index
+WKV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-5, 2**-7)}
+
+
+def _rkvwu(card, seed, B, H, S, hd, dtype, model_layout=False):
+    """r, k, v, w, u of the reference test's law; with ``model_layout`` as
+    (B, H, S, hd) views of (B, S, H, hd) tensors and w near the model's
+    exp(-exp(-6))."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    if model_layout:
+        draw = lambda: torch.randn((B, S, H, hd), generator=gen, device=card).transpose(1, 2)
+    else:
+        draw = lambda: torch.randn((B, H, S, hd), generator=gen, device=card)
+    r, k, v = draw(), draw(), draw()
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * draw())) if model_layout else torch.sigmoid(draw()) * 0.5 + 0.45
+    u = torch.randn((H, hd), generator=gen, device=card)
+    return [x.to(dtype) for x in (r, k, v, w, u)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd", [
+    (1, 2, 128, 64), (2, 4, 96, 32),      # the reference's test shapes
+    (2, 3, 77, 64),                       # S not a chunk multiple
+    (1, 4, 300, 64),                      # several chunks, the last one ragged
+    (3, 2, 5, 32),                        # S shorter than one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv_kernel_matches_plain_version(card, B, H, S, hd, dtype):
+    r, k, v, w, u = _rkvwu(card, 31, B, H, S, hd, dtype)
+    before = wkv_kernel.launches
+    got, final = wkv_ops.rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == r.shape and final is None
+    want = wkv_ref.rwkv6_scan(r, k, v, w, u)[0]
+    atol, rtol = WKV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype,out_dtype", [
+    (torch.float32, torch.float32),       # the model's: bf16 projections, float32 decay and y
+    (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32),
+], ids=["w32-y32", "w32-y16", "w16-y32"])
+def test_wkv_kernel_takes_mixed_types(card, w_dtype, out_dtype):
+    """bfloat16 r, k, v with w and y in their own types: the float32
+    recurrence on the same values, y rounded once to its type."""
+    r, k, v, w, u = _rkvwu(card, 34, 2, 3, 77, 64, torch.bfloat16)
+    w = (torch.sigmoid(torch.randn(w.shape, generator=torch.Generator(device=card).manual_seed(35),
+                                   device=card)) * 0.5 + 0.45).to(w_dtype)
+    got = wkv_kernel.rwkv6_scan(r, k, v, w, u, out_dtype)
+    assert got.dtype == out_dtype
+    want = wkv_ref.rwkv6_scan(r, k, v, w, u, out_dtype=out_dtype)[0]
+    atol, rtol = WKV_TOL[out_dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_reads_the_models_layout(card):
+    """(B, H, S, hd) views of (B, S, H, hd) tensors, w near 0.9975 over 2048
+    steps: read by stride, y written in r's layout."""
+    r, k, v, w, u = _rkvwu(card, 32, 1, 8, 2048, 64, torch.float32, model_layout=True)
+    assert not r.is_contiguous()
+    got = wkv_kernel.rwkv6_scan(r, k, v, w, u)
+    assert got.stride() == r.stride()
+    want = wkv_ref.rwkv6_scan(r, k, v, w, u)[0]
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wkv_wrapper_refuses_what_the_kernel_does_not_take(card):
+    r, k, v, w, u = _rkvwu(card, 33, 1, 2, 16, 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_kernel.rwkv6_scan(*(x[..., :48] for x in (r, k, v, w)), u[:, :48])
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        wkv_kernel.rwkv6_scan(r, k, v.half(), w, u)
+    with pytest.raises(ValueError, match="must be float32 or bfloat16"):
+        wkv_kernel.rwkv6_scan(r, k, v, w.half(), u)
+    with pytest.raises(ValueError, match="must be float32 or bfloat16"):
+        wkv_kernel.rwkv6_scan(r, k, v, w, u, torch.float16)
+    with pytest.raises(ValueError, match="one shape"):
+        wkv_kernel.rwkv6_scan(r, k[:, :, :8], v, w, u)
+    with pytest.raises(ValueError, match=r"want \(H, hd\)"):
+        wkv_kernel.rwkv6_scan(r, k, v, w, u[:1])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wkv_kernel.rwkv6_scan(r, k, v, w.cpu(), u)
+    with pytest.raises(ValueError, match="not contiguous"):
+        wkv_kernel.rwkv6_scan(r, k, v, w.transpose(-1, -2).contiguous().transpose(-1, -2), u)
+
+
+@pytest.mark.cuda
+def test_rwkv_prefill_goes_through_the_kernel(card):
+    """The smoke RWKV model on the card: one launch per layer, logits within
+    float32 round-off of the plain recurrence's; decode launches nothing, and
+    the kernel refuses a carried state rather than handing it to the plain
+    recurrence."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M, rwkv as R
+    from repro_torch.models.config import smoke_variant
+
+    cfg = smoke_variant(get_config("rwkv6_1_6b"))
+    params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator(device=card).manual_seed(1),
+                         device=card)
+    before = wkv_kernel.launches
+    got = M.prefill(params, cfg, {"tokens": toks}, use_kernel=True)
+    torch.cuda.synchronize()
+    assert wkv_kernel.launches == before + cfg.n_layers
+    want = M.prefill(params, cfg, {"tokens": toks}, use_kernel=False)
+    torch.testing.assert_close(got, want, atol=4e-5, rtol=1e-4)
+    cache = M.init_cache(cfg, 2, 16, card)
+    M.decode_step(params, cfg, toks[:, :1], 0, cache)
+    assert wkv_kernel.launches == before + cfg.n_layers
+    x = torch.zeros((2, 3, cfg.d_model), device=card)
+    with pytest.raises(ValueError, match="carried state"):
+        R.time_mix(params.layers[0].rwkv, cfg, x, cache[0], use_kernel=True)

@@ -237,10 +237,11 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         M.prefill(tp, cfg, toks, mesh=object())
     for bad in (dict(n_experts=4, top_k=2), dict(use_mla=True),
-                dict(block_pattern=("mamba",)), dict(block_pattern=("rwkv",)),
-                dict(frontend="audio")):
+                dict(block_pattern=("mamba",)), dict(frontend="audio")):
         with pytest.raises(NotImplementedError):
             M.init_params(cfg.scaled(**bad), torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match=r"mamba blocks .*ROADMAP\.md §1, item 5"):
+        M.init_params(cfg.scaled(block_pattern=("mamba",)), torch.Generator().manual_seed(0))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
