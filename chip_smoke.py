@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; nothing is skipped and nothing runs on
 the CPU in place of the card):
 
 1. build the CUDA kernels of `repro_torch.kernels` (`fedsem_objective`,
-   `flash_attention`, `rwkv6_scan`) from the sources in this checkout, one
-   nvcc (sm_90a) each, all at once, and print ptxas' report;
+   `flash_attention`, `rwkv6_scan`, `mamba_scan`) from the sources in this
+   checkout, one nvcc (sm_90a) each, all at once, and print ptxas' report;
 2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
    selection, (48, 1, 10) for the per-iteration trace), at the exhaustive
@@ -31,8 +31,9 @@ the CPU in place of the card):
    chunked attention of `repro_torch.models.attention`) on the card: float32
    and bfloat16; MHA, GQA, MQA; S not a block multiple; window; softcap;
    non-causal; hd 256; the Gemma-2 2B layer shapes (B = 1, S = 8192, H 8,
-   KV 4, hd 256, bf16; global and window 4096, softcap 50) and the
-   Qwen2.5-3B shape (H 16, KV 2, hd 128). Tolerance, absolute plus relative:
+   KV 4, hd 256, bf16; global and window 4096, softcap 50), the
+   Qwen2.5-3B shape (H 16, KV 2, hd 128) and the Jamba-1.5-Large attention
+   layer (S = 4096, H 64, KV 8, hd 128, bf16). Tolerance, absolute plus relative:
    float32 the JAX tests' own 2e-5; bfloat16 one bf16 ulp (rtol 2**-7,
    atol 1e-4), since kernel and plain version both work in float32 on the
    same inputs and differ only in the rounding of the output (the JAX tests'
@@ -81,10 +82,39 @@ the CPU in place of the card):
    must launch the WKV kernel once per layer (24) and give finite logits,
    with the yardsticks, logit gates and profile of phase 5;
 9. `ServeLoop` on the RWKV model, as phase 6 (decode carries the state
-   through the plain one-step recurrence and launches no kernel).
+   through the plain one-step recurrence and launches no kernel);
+10. the selective-scan kernel of `repro_torch.kernels.mamba_scan` against its
+   plain version (the step-by-step recurrence of its ``ref.py``) on the card:
+   the reference's test cases ((B, S, di, N) = (1, 64, 128, 8) and
+   (2, 96, 64, 16); x and dt float32 or bfloat16, B/C float32), a ragged S
+   and di, B/C as strided column views of one projection, and the
+   full-width Jamba-1.5-Large layer (1, 4096, 16384, 16) all in float32 and
+   in the types the bf16 model hands over (bf16 x, float32 dt, bf16 B/C
+   views; y in x's type), with dt and A of the initialised model's law.
+   Tolerance by y's type: float32 the JAX tests' 1e-4; bfloat16 one bf16 ulp (rtol
+   2**-7, atol 1e-5), since kernel and plain version evolve the same float32
+   state and differ only in the order of the sum over the state. Timed as
+   phase 7, beside its bound (the bytes, or the operations: the
+   exponentials shared between the card's exponential unit, 16 a clock per
+   SM, and polynomials on the float32 pipe beside the other float32
+   operations, in the share that levels the two; whichever takes longer). No
+   single PyTorch call computes the selective scan;
+11. the Jamba slice: `jamba_1_5_large_398b` at full width cut to one period
+   with every FFN dense (``scaled(n_layers=8, n_experts=0, top_k=0)``: 7
+   Mamba layers and 1 attention layer (H 64, KV 8, hd 128), 9.0 B
+   parameters) in bfloat16 from a seeded `torch.Generator`;
+   `prefill(use_kernel=True)` on B = 1, S = 4096 tokens must launch the
+   selective-scan kernel once per Mamba layer (7) and the flash kernel once
+   per attention layer (1) and give finite logits, with the yardsticks,
+   logit gates and profile of phase 5;
+12. `ServeLoop` on the Jamba cut, as phase 6 (decode carries (conv window,
+   h) through the plain one-step recurrence and launches no kernel).
 
-Each path (3, 5 + 6, and 8 + 9) is driven with the kernels' launch counts set
-to 0 just before it and read just after. With ``--profile``, one short solve
+Each LM path launches, per prefill, each kernel as often as it has layers of
+that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
+and every other kernel never. Each path (3, 5 + 6, 8 + 9 and 11 + 12) is
+driven with the kernels' launch counts set to 0 just before it and read just
+after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -109,13 +139,31 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-4, 2**-7)}
 #: the library call against the plain version: the JAX tests' tolerance
 LIBRARY_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-#: phase 7's (atol, rtol): float32 the JAX tests' 1e-4, bfloat16 one ulp
-WKV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2**-7)}
+#: phase 7's and phase 10's (atol, rtol): float32 the JAX tests' 1e-4,
+#: bfloat16 one ulp
+WKV_TOL = SCAN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2**-7)}
 #: float32 operations WKV6 needs per (step, key, value column): the FMA of
 #: r_i S_ij into y_j (2), k_i v_j, the FMA w_i S_ij + k_i v_j (2); and per
 #: (step, key) the bonus term's r_i u_i k_i and its sum (3), per (step, value
 #: column) v_j times that sum and its add into y_j (2)
 WKV_OPS, WKV_OPS_KEY, WKV_OPS_COL = 5, 3, 2
+#: float32 operations the selective scan needs per (step, channel, state):
+#: dt A, da h, (dt x) B, their add, the FMA of h C into y (2); and per (step,
+#: channel): dt x, D x and its add. Besides, one exponential per (step,
+#: channel, state)
+SCAN_OPS, SCAN_OPS_CHANNEL = 6, 3
+#: exponentials a second: 16 a clock on each of the 132 SMs (the exponential
+#: unit's rate in the CUDA programming guide's throughput table for compute
+#: capability 9.0) at the 1.98 GHz that the float32 rate implies
+#: (67e12 = 132 SMs x 128 lanes x 2 x 1.98e9)
+EXP_PER_S = 16 * 132 * FP32_FLOPS_PER_S / (132 * 128 * 2)
+#: float32 operations of an exponential computed as a polynomial on the FMA
+#: pipe instead (as FlashAttention-3 does for part of its exponentials):
+#: round the base-2 argument with a magic-number add, subtract it back, take
+#: the fraction (3 adds), and a degree-5 Horner polynomial for 2^f on
+#: [-1/2, 1/2] (5 FMAs: about 1 ulp, as `expf`'s 2); the exponent's insert is
+#: integer work, off that pipe
+EXP_POLY_OPS = 3 + 5 * 2
 #: phases 5 and 8's float32 gates: each layer's kernel route against its
 #: plain route on the same input at the kernels' float32 (atol, rtol) (the
 #: JAX tests' 1e-4); and the kernel prefill's logits no farther from the
@@ -124,12 +172,22 @@ WKV_OPS, WKV_OPS_KEY, WKV_OPS_COL = 5, 3, 2
 LM_LAYER_TOL = (1e-4, 1e-4)
 LM_F32_ULP_FACTOR = 2.0
 #: the symbol of each LM kernel, as it appears in a profiler trace
-KERNEL_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "rwkv6_scan": "wkv6_fwd_kernel"}
+KERNEL_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "rwkv6_scan": "wkv6_fwd_kernel",
+                  "mamba_scan": "mamba_scan_fwd_kernel"}
+#: every kernel of the port, by module name under `repro_torch.kernels`
+KERNELS = ("fedsem_objective", "flash_attention", "rwkv6_scan", "mamba_scan")
+#: the kernel a prefill launches once for each layer of a block kind
+KERNEL_OF_KIND = {"attn": "flash_attention", "attn_local": "flash_attention",
+                  "rwkv": "rwkv6_scan", "mamba": "mamba_scan"}
 #: what marks a matrix product's kernel in a trace (cuBLAS and CUTLASS names)
 PRODUCT_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
-#: the LM paths: (arch, prefill length, the kernel its prefill launches per layer)
-LM_PATHS = (("gemma2_2b", 8192, "flash_attention"),   # phases 5-6 (> the 4096 window)
-            ("rwkv6_1_6b", 4096, "rwkv6_scan"))        # phases 8-9 (RWKV-6's training context)
+#: the LM paths: (arch, prefill length, the cut of its config, as
+#: `ModelConfig.scaled` arguments)
+LM_PATHS = (("gemma2_2b", 8192, {}),                  # phases 5-6 (> the 4096 window)
+            ("rwkv6_1_6b", 4096, {}),                 # phases 8-9 (RWKV-6's training context)
+            # phases 11-12: one period, the MoE FFNs dense (ROADMAP item 12
+            # ports the experts; one period with them is 90 GB in bf16)
+            ("jamba_1_5_large_398b", 4096, dict(n_layers=8, n_experts=0, top_k=0)))
 RTOL, ATOL = 5e-7, 1e-5
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
 #: floating-point operations per (candidate, device) of eq. 13 as the kernel
@@ -299,6 +357,7 @@ def phase_slice(device):
     from repro_torch.core.types import tree_map
     from repro_torch.kernels.fedsem_objective import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.scenarios import get_family
 
@@ -309,7 +368,8 @@ def phase_slice(device):
     configs = {"pgd": AllocatorConfig(inner="pgd"), "sca": AllocatorConfig()}
 
     solves = {}
-    kernel.launches = flash_kernel.launches = wkv_kernel.launches = 0   # the allocator path starts here
+    # the allocator path starts here
+    kernel.launches = flash_kernel.launches = wkv_kernel.launches = scan_kernel.launches = 0
     for name, cfg in configs.items():
         before = kernel.launches
         torch.cuda.synchronize()
@@ -324,8 +384,8 @@ def phase_slice(device):
         solves[name] = dict(res=res, wall_s=wall, launches=n)
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
     main_path_launches = kernel.launches     # ... and ends here
-    check(flash_kernel.launches == wkv_kernel.launches == 0,
-          "the allocator path launched the flash or the WKV kernel")
+    check(flash_kernel.launches == wkv_kernel.launches == scan_kernel.launches == 0,
+          "the allocator path launched the flash, the WKV or the selective-scan kernel")
 
     for name, cfg in configs.items():
         torch.cuda.synchronize()
@@ -445,6 +505,7 @@ FLASH_CASES = [
     ("gemma2_2b global", (1, 8192, 8, 4, 256), "bfloat16", True, None, 50.0),
     ("gemma2_2b local", (1, 8192, 8, 4, 256), "bfloat16", True, 4096, 50.0),
     ("qwen2_5_3b", (1, 8192, 16, 2, 128), "bfloat16", True, None, None),
+    ("jamba_1_5_large_398b attn", (1, 4096, 64, 8, 128), "bfloat16", True, None, None),
 ]
 
 
@@ -611,10 +672,117 @@ def phase_wkv(device):
     return cases
 
 
-def profile_prefill(M, params, cfg, tokens, kernel_name):
-    """One warm kernel prefill under `torch.profiler`: its kernel's device
-    time and launches, the matrix products' device time, the device's busy
-    time (its own events only, as in `phase_profile`) and the top entries."""
+def scan_bound(B, S, di, N, x_dtype, dt_dtype, b_dtype):
+    """(ms, 'bytes'|'operations', parts): the least time of the selective
+    scan. Operations: one exponential per (step, channel, state) and the
+    float32 operations of `SCAN_OPS`/`SCAN_OPS_CHANNEL` at the float32 peak.
+    Each exponential runs either on the exponential unit (`EXP_PER_S`) or as
+    a polynomial of `EXP_POLY_OPS` on the float32 pipe beside the other
+    float32 work; the bound takes the share of polynomials that levels the
+    two. Bytes: x, dt, B, C read once, y (x's type) written once, A and D
+    (float32) read once. ``parts``: the exponentials all on their unit, the
+    float32 work alone, the bytes (ms each) and the polynomial share."""
+    import torch
+
+    size = lambda dt: torch.tensor([], dtype=dt).element_size()
+    nbytes = (B * S * di * (2 * size(x_dtype) + size(dt_dtype))
+              + 2 * B * S * N * size(b_dtype) + 4 * di * (N + 1))
+    t_exp = B * S * di * N / EXP_PER_S * 1e3
+    t_flops = B * S * di * (SCAN_OPS * N + SCAN_OPS_CHANNEL) / FP32_FLOPS_PER_S * 1e3
+    t_poly = B * S * di * N * EXP_POLY_OPS / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # a share f of polynomials: the unit takes (1 - f) t_exp, the pipe t_flops + f t_poly
+    share = max(0.0, (t_exp - t_flops) / (t_exp + t_poly))
+    t_ops = max((1 - share) * t_exp, t_flops + share * t_poly)
+    kind = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), kind, dict(bound_exp_ms=t_exp, bound_fp32_ms=t_flops,
+                                           bound_bytes_ms=t_bytes, bound_poly_share=share)
+
+
+#: phase 10's cases: (name, (B, S, di, N), type of x (and y), of dt, of B/C,
+#: the model's law (dt near softplus(log(expm1(0.01))), A = -(1..N), B/C as
+#: column views of one projection) or the reference test's)
+SCAN_CASES = [
+    *((f"reference (1, 64, 128, 8) {dt}", (1, 64, 128, 8), dt, dt, "float32", False)
+      for dt in ("float32", "bfloat16")),
+    *((f"reference (2, 96, 64, 16) {dt}", (2, 96, 64, 16), dt, dt, "float32", False)
+      for dt in ("float32", "bfloat16")),
+    *((f"ragged S and di {dt}", (2, 77, 96, 16), dt, dt, "float32", False)
+      for dt in ("float32", "bfloat16")),
+    ("strided B/C", (2, 512, 1024, 16), "bfloat16", "float32", "bfloat16", True),
+    ("jamba_1_5_large_398b layer float32", (1, 4096, 16384, 16), "float32", "float32", "float32",
+     True),
+    ("jamba_1_5_large_398b layer", (1, 4096, 16384, 16), "bfloat16", "float32", "bfloat16", True),
+]
+#: the phase-10 case at the shape and types the Jamba prefill launches the kernel with
+SCAN_MAIN = "jamba_1_5_large_398b layer"
+#: the width of Jamba's x_proj output: dt rank 512 + 2 N
+SCAN_PROJ_EXTRA = 512
+
+
+def phase_scan(device):
+    """Phase 10: the selective-scan kernel against its plain version, timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba_scan import kernel, ref
+
+    gen = torch.Generator(device=device).manual_seed(1357)
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    cases = []
+    for name, (B, S, di, N), tx, td, tb, model_law in SCAN_CASES:
+        x_dtype, dt_dtype, b_dtype = (getattr(torch, t) for t in (tx, td, tb))
+        x = draw(B, S, di).to(x_dtype)
+        if model_law:   # as the initialised Jamba has them; B and C views of x_proj's output
+            dt = F.softplus(-4.6 + 0.5 * draw(B, S, di))
+            A = -torch.arange(1, N + 1, dtype=torch.float32, device=device).repeat(di, 1)
+            proj = draw(B, S, SCAN_PROJ_EXTRA + 2 * N).to(b_dtype)
+            Bm, Cm = proj[..., SCAN_PROJ_EXTRA:SCAN_PROJ_EXTRA + N], proj[..., SCAN_PROJ_EXTRA + N:]
+        else:           # the reference test's law
+            dt = F.softplus(draw(B, S, di)) * 0.1
+            A = -draw(di, N).abs()
+            Bm, Cm = draw(B, S, N).to(b_dtype), draw(B, S, N).to(b_dtype)
+        dt = dt.to(dt_dtype)
+        D = 1.0 + 0.5 * draw(di)
+        run_k = lambda: kernel.mamba_scan(x, dt, Bm, Cm, A, D)
+        run_p = lambda: ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        atol, rtol = SCAN_TOL[tx]
+        check(bool(torch.isfinite(got.float()).all()), f"scan[{name}]: non-finite output")
+        check(got.dtype == x_dtype and got.shape == want.shape, f"scan[{name}]: dtype or shape")
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= atol + rtol * want.float().abs()).all()),
+              f"scan[{name}]: max abs err {float(err.max())} beyond atol {atol} + rtol {rtol}")
+        rec = dict(case=name, shape=[B, S, di, N], x_dtype=tx, dt_dtype=td, b_dtype=tb,
+                   strided_bc=not Bm.is_contiguous(), atol=atol, rtol=rtol,
+                   max_abs_err=float(err.max()), out_mean_abs=float(want.float().abs().mean()),
+                   dt_mean=float(dt.float().mean()), ms=graph_ms(run_k))
+        del got, want, err
+        if S <= 1024:
+            rec["plain_ms"], rec["plain_timing"] = graph_ms(run_p, 1, 5), "graph replay"
+        else:
+            rec["plain_ms"], rec["plain_timing"] = cuda_ms(run_p, 1), "events around one eager call"
+        rec["bound_ms"], rec["bound_by"], parts = scan_bound(B, S, di, N, x_dtype, dt_dtype, b_dtype)
+        rec.update(parts)
+        cases.append(rec)
+        print(f"scan[{name}] {tuple(rec['shape'])} x {tx}, dt {td}, B/C {tb}"
+              f"{' (strided)' if rec['strided_bc'] else ''}: kernel {rec['ms']:.5f} ms, "
+              f"plain {rec['plain_ms']:.5f} ms ({rec['plain_timing']}), bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}, {rec['bound_poly_share']:.3f} of the exponentials as "
+              f"polynomials; all on the exponential unit {rec['bound_exp_ms']:.5f}, float32 "
+              f"{rec['bound_fp32_ms']:.5f}, bytes {rec['bound_bytes_ms']:.5f}); max abs err "
+              f"{rec['max_abs_err']:.3g} (mean |y| {rec['out_mean_abs']:.3g}, mean dt "
+              f"{rec['dt_mean']:.5f})", flush=True)
+    torch.cuda.synchronize()
+    return cases
+
+
+def profile_prefill(M, params, cfg, tokens, want):
+    """One warm kernel prefill under `torch.profiler`: each of its kernels'
+    device time and launches (``want``: the launches each kernel must show),
+    the matrix products' device time, the device's busy time (its own events
+    only, as in `phase_profile`) and the top entries."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -628,16 +796,18 @@ def profile_prefill(M, params, cfg, tokens, kernel_name):
     del out
     on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
-    mine = [e for e in on_dev if KERNEL_SYMBOLS[kernel_name] in e.key]
     products = [e for e in on_dev if any(m in e.key.lower() for m in PRODUCT_MARKS)]
     busy = dev_ms(on_dev)
     check(busy > 0, f"profile[{cfg.name}]: the profiler saw no device time")
-    count = sum(e.count for e in mine)
-    check(count == cfg.n_layers,
-          f"profile[{cfg.name}]: the trace holds {count} {kernel_name} launches, want {cfg.n_layers}")
+    kernel_ms, kernel_launches = {}, {}
+    for name, n in want.items():
+        mine = [e for e in on_dev if KERNEL_SYMBOLS[name] in e.key]
+        count = sum(e.count for e in mine)
+        check(count == n, f"profile[{cfg.name}]: the trace holds {count} {name} launches, want {n}")
+        kernel_ms[name], kernel_launches[name] = dev_ms(mine), count
     top = sorted(on_dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return dict(wall_profiled_s=wall, device_busy_ms=busy, kernel_device_ms=dev_ms(mine),
-                kernel_launches=count, products_device_ms=dev_ms(products),
+    return dict(wall_profiled_s=wall, device_busy_ms=busy, kernel_device_ms=kernel_ms,
+                kernel_launches=kernel_launches, products_device_ms=dev_ms(products),
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
 
 
@@ -671,10 +841,11 @@ def perturb_one_ulp(params, seed):
         e.copy_(torch.nextafter(e, torch.where(up, inf, -inf)))
 
 
-def phase_lm(device, arch, S, kernel_name):
-    """Full-width ``arch`` prefill of S tokens through its kernel (one launch
-    per layer) and `ServeLoop` on the same model (phases 5-6 and 8-9).
-    Returns (report, the kernel's launches on the path)."""
+def phase_lm(device, arch, S, cut):
+    """Full-width ``arch`` (cut by ``cut``, `ModelConfig.scaled` arguments)
+    prefill of S tokens through its kernels (one launch per layer of each
+    kernel's block kind) and `ServeLoop` on the same model (phases 5-6, 8-9
+    and 11-12). Returns (report, each kernel's launches on the path)."""
     import importlib
 
     import torch
@@ -684,10 +855,12 @@ def phase_lm(device, arch, S, kernel_name):
     from repro_torch.models import model as M
 
     kernels = {name: importlib.import_module(f"repro_torch.kernels.{name}.kernel")
-               for name in ("fedsem_objective", "flash_attention", "rwkv6_scan")}
-    kernel = kernels[kernel_name]
-    cfg = get_config(arch)
+               for name in KERNELS}
+    cfg = get_config(arch).scaled(**cut)
     check(cfg.dtype == "bfloat16", f"{arch} is not a bf16 config")
+    kinds = M.layer_kinds(cfg)
+    want = {name: sum(KERNEL_OF_KIND[k] == name for k in kinds) for name in KERNELS}
+    mine = [name for name, n in want.items() if n]        # the path's kernels
     seed = 0
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed))
@@ -707,17 +880,15 @@ def phase_lm(device, arch, S, kernel_name):
     logits_k = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = kernel.launches
+    prefill_launches = {name: k.launches for name, k in kernels.items()}
     loop = ServeLoop(cfg, params, batch_slots=4, max_len=256)
     t0 = time.perf_counter()
     results, stats = loop.run(prompts, max_new=16)
     serve_s = time.perf_counter() - t0
-    launches = kernel.launches                            # ... and ends here
-    others = {name: k.launches for name, k in kernels.items() if k is not kernel}
-    check(not any(others.values()), f"the {arch} path launched other kernels: {others}")
-    check(prefill_launches == cfg.n_layers,
-          f"{arch} prefill launched the {kernel_name} kernel {prefill_launches} times, want {cfg.n_layers}")
-    check(launches == prefill_launches, f"{arch} ServeLoop launched the {kernel_name} kernel")
+    launches = {name: k.launches for name, k in kernels.items()}   # ... and ends here
+    check(prefill_launches == want,
+          f"{arch} prefill launched the kernels {prefill_launches} times, want {want}")
+    check(launches == prefill_launches, f"{arch} ServeLoop launched a kernel: {launches}")
     check(tuple(logits_k.shape) == (1, S, cfg.vocab), f"prefill logits shape {tuple(logits_k.shape)}")
     check(bool(torch.isfinite(logits_k).all()), "prefill logits are not finite")
     check(sorted(results) == list(range(8)), f"ServeLoop finished requests {sorted(results)}")
@@ -725,8 +896,9 @@ def phase_lm(device, arch, S, kernel_name):
         check(len(toks) == 16 and all(0 <= t < cfg.vocab for t in toks),
               f"ServeLoop request {i}: {len(toks)} tokens, want 16 in [0, {cfg.vocab})")
     ms_step = 1e3 * sum(stats["step_times"]) / stats["steps"]
+    counts = ", ".join(f"{want[name]} {name}" for name in mine)
     print(f"{arch} prefill(use_kernel=True) B=1 S={S}: {prefill_s:.3f} s wall (first call), "
-          f"{prefill_launches} {kernel_name} launches, finite logits", flush=True)
+          f"launches: {counts}; finite logits", flush=True)
     print(f"{arch} ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in "
           f"{serve_s:.3f} s, {ms_step:.2f} ms/step", flush=True)
 
@@ -747,15 +919,17 @@ def phase_lm(device, arch, S, kernel_name):
     sub_k = logits_k[0, rows].float().clone()
     del logits_k
     run(params, cfg, True, "kernel_s")                    # a second, warm call
-    prof = profile_prefill(M, params, cfg, tokens, kernel_name)
+    prof = profile_prefill(M, params, cfg, tokens, {name: want[name] for name in KERNEL_SYMBOLS})
     warm_ms = 1e3 * timed["kernel_s"]
+    busy = prof["device_busy_ms"]
+    shares = "; ".join(
+        f"{prof['kernel_launches'][name]} {name} launches {prof['kernel_device_ms'][name]:.3f} ms = "
+        f"{100 * prof['kernel_device_ms'][name] / warm_ms:.2f}% of the wall, "
+        f"{100 * prof['kernel_device_ms'][name] / busy:.2f}% of busy" for name in mine)
     print(f"{arch} warm prefill, profiled ({prof['wall_profiled_s']:.3f} s wall): device busy "
-          f"{prof['device_busy_ms']:.2f} ms = {100 * prof['device_busy_ms'] / warm_ms:.2f}% of "
-          f"the unprofiled {warm_ms:.2f} ms; {prof['kernel_launches']} {kernel_name} launches "
-          f"{prof['kernel_device_ms']:.3f} ms = {100 * prof['kernel_device_ms'] / warm_ms:.2f}% of "
-          f"the wall, {100 * prof['kernel_device_ms'] / prof['device_busy_ms']:.2f}% of busy; "
-          f"matrix products {prof['products_device_ms']:.3f} ms = "
-          f"{100 * prof['products_device_ms'] / prof['device_busy_ms']:.2f}% of busy", flush=True)
+          f"{busy:.2f} ms = {100 * busy / warm_ms:.2f}% of the unprofiled {warm_ms:.2f} ms; "
+          f"{shares}; matrix products {prof['products_device_ms']:.3f} ms = "
+          f"{100 * prof['products_device_ms'] / busy:.2f}% of busy", flush=True)
     for key, ms, count in prof["top"]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key[:100]}")
     sub_p = run(params, cfg, False, "plain_s")
@@ -797,9 +971,10 @@ def phase_lm(device, arch, S, kernel_name):
     check(gap_f32 <= LM_F32_ULP_FACTOR * gap_ulp,
           f"{arch}: float32 kernel prefill differs from the plain one by {gap_f32}, more than "
           f"{LM_F32_ULP_FACTOR} x a one-ulp embedding perturbation's {gap_ulp}")
-    report = dict(arch=arch, tokens=S, params=n_params, init_s=init_s, prefill_first_s=prefill_s,
-                  **timed, prefill_launches=prefill_launches, profile=prof,
-                  kernel_share_of_warm_prefill=prof["kernel_device_ms"] / warm_ms,
+    report = dict(arch=arch, cut=cut, tokens=S, params=n_params, init_s=init_s,
+                  prefill_first_s=prefill_s, **timed, prefill_launches=prefill_launches, profile=prof,
+                  kernel_share_of_warm_prefill={name: prof["kernel_device_ms"][name] / warm_ms
+                                                for name in mine},
                   gap_kernel_plain=gap_kp, gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
                   gap_float32_kernel_plain=gap_f32, gap_float32_one_ulp=gap_ulp,
                   layer_gaps=layer_gaps,
@@ -828,6 +1003,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.fedsem_objective import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 
     device = torch.device("cuda", 0)
@@ -837,10 +1013,11 @@ def main() -> int:
 
     # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(k.build) for k in (kernel, flash_kernel, wkv_kernel)]
+    all_kernels = (kernel, flash_kernel, wkv_kernel, scan_kernel)
+    with concurrent.futures.ThreadPoolExecutor(len(all_kernels)) as pool:
+        builds = [pool.submit(k.build) for k in all_kernels]
         built = [b.result() for b in builds]
-    for k in (kernel, flash_kernel, wkv_kernel):
+    for k in all_kernels:
         k.load()
     build_s = time.perf_counter() - t0
     for path, log in built:
@@ -865,14 +1042,24 @@ def main() -> int:
     flash_cases = phase_flash(device)
 
     # phases 5 and 6: the Gemma-2 slice (prefill, then ServeLoop)
-    lm, flash_launches = phase_lm(device, *LM_PATHS[0])
+    lm, gemma_launches = phase_lm(device, *LM_PATHS[0])
 
     # phase 7: the WKV6 kernel vs its plain version
     wkv_cases = phase_wkv(device)
 
     # phases 8 and 9: the RWKV slice (prefill, then ServeLoop)
-    rwkv, wkv_launches = phase_lm(device, *LM_PATHS[1])
+    rwkv, rwkv_launches = phase_lm(device, *LM_PATHS[1])
     main_wkv = next(c for c in wkv_cases if c["case"] == WKV_MAIN)
+
+    # phase 10: the selective-scan kernel vs its plain version
+    scan_cases = phase_scan(device)
+
+    # phases 11 and 12: the Jamba slice (prefill, then ServeLoop)
+    jamba, jamba_launches = phase_lm(device, *LM_PATHS[2])
+    main_scan = next(c for c in scan_cases if c["case"] == SCAN_MAIN)
+    paths = {"gemma2_2b": gemma_launches, "rwkv6_1_6b": rwkv_launches,
+             "jamba_1_5_large_398b": jamba_launches}
+    by_path = lambda name: {arch: n[name] for arch, n in paths.items() if n[name]}
 
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
@@ -893,7 +1080,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": flash_launches,
+        "launches": sum(by_path("flash_attention").values()),
+        "launches_by_path": by_path("flash_attention"),
         "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
         "ms": main_flash["ms"],
         "plain_ms": main_flash["plain_ms"],
@@ -905,12 +1093,26 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:47",
-        "launches": wkv_launches,
+        "launches": sum(by_path("rwkv6_scan").values()),
+        "launches_by_path": by_path("rwkv6_scan"),
         "max_abs_err": max(c["max_abs_err"] for c in wkv_cases),
         "ms": main_wkv["ms"],
         "plain_ms": main_wkv["plain_ms"],
         "bound_ms": main_wkv["bound_ms"],
         "bound_by": main_wkv["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:48",
+        "launches": sum(by_path("mamba_scan").values()),
+        "launches_by_path": by_path("mamba_scan"),
+        "max_abs_err": max(c["max_abs_err"] for c in scan_cases),
+        "ms": main_scan["ms"],
+        "plain_ms": main_scan["plain_ms"],
+        "bound_ms": main_scan["bound_ms"],
+        "bound_by": main_scan["bound_by"],
         "library_ms": None,
     }]}
     smi = subprocess.run(
@@ -923,7 +1125,7 @@ def main() -> int:
         args.out.write_text(json.dumps(
             dict(build_s=build_s, cases=cases, solves=solves, profile=profiled,
                  flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
-                 record=record, card=smi), indent=1))
+                 scan_cases=scan_cases, jamba=jamba, record=record, card=smi), indent=1))
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

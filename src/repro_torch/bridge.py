@@ -62,22 +62,25 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
     whose leaves carry a leading period axis. Layer ``offset + period *
     pattern_len + j`` of the port takes period ``period`` of block ``b{j}``.
     Arrays go through float32 (exact for bfloat16, which numpy holds as
-    ``ml_dtypes.bfloat16``) and then to the config's dtype.
+    ``ml_dtypes.bfloat16``) and then to the config's dtype, except the Mamba
+    leaves the reference keeps in float32 (`models.mamba.FLOAT32_LEAVES`),
+    which stay float32 in a bfloat16 model.
     """
     from .models.layers import dtype_of
+    from .models.mamba import leaf_dtype
     from .models.model import LM, check_ported
 
     check_ported(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg)
 
-    def tensor(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=dt)
+    def tensor(x, dtype=dt):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=dtype)
 
-    def convert(node):
+    def convert(node, name=None, mamba=False):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return tensor(node)
+            return {k: convert(v, k, mamba or k == "mamba") for k, v in node.items()}
+        return tensor(node, leaf_dtype(name, dt) if mamba else dt)
 
     layers = []
     for name, n_periods, _moe in cfg.stages():

@@ -1,7 +1,10 @@
 """Architecture registry: `--arch <id>` resolves here.
 
 Counterpart of `repro.configs.registry`. The port has the configurations
-whose blocks it runs; every other architecture of the reference raises
+whose blocks it runs (``jamba_1_5_large_398b`` is the published config, with
+its 16 experts: `models.model.init_params` raises on it, naming ROADMAP.md
+§1 item 12, and runs its dense cut, ``CONFIG.scaled(n_experts=0,
+top_k=0)``); every other architecture of the reference raises
 `NotImplementedError` naming the ROADMAP.md §1 item that ports it.
 """
 from __future__ import annotations
@@ -25,10 +28,9 @@ ARCHS = (
     "fedsem_autoencoder",   # the paper's own model (not an LM config)
 )
 #: architectures the port runs
-PORTED = ("gemma2_2b", "qwen2_5_3b", "rwkv6_1_6b")
+PORTED = ("gemma2_2b", "qwen2_5_3b", "rwkv6_1_6b", "jamba_1_5_large_398b")
 #: where each other architecture is ported (ROADMAP.md §1)
 NOT_PORTED = {
-    "jamba_1_5_large_398b": "item 5 (Mamba blocks, models/mamba.py, the mamba_scan kernel)",
     "arctic_480b": "item 12 (MoE and MLA)",
     "deepseek_v3_671b": "item 12 (MoE and MLA)",
     "starcoder2_3b": "item 11 (training and the remaining dense configs)",

@@ -1,7 +1,8 @@
 """Model assembly: embed -> layers -> final norm -> head; prefill and decode.
 
-Counterpart of `repro.models.model` for ``attn``/``attn_local`` blocks with
-a dense FFN and for ``rwkv`` blocks (time mix and channel mix). The
+Counterpart of `repro.models.model` for ``attn``/``attn_local`` and
+``mamba`` blocks with a dense FFN and for ``rwkv`` blocks (time mix and
+channel mix). The
 reference stacks each stage's per-period parameters and scans over them;
 here every layer is its own `Block` in an `nn.ModuleList`,
 in the reference's order (stage by stage, period by period, pattern position
@@ -15,8 +16,9 @@ Entry points:
   * prefill(params, cfg, batch)               -> logits
   * decode_step(params, cfg, token, pos, cache) -> (logits, cache)
 
-MoE and MLA layers, ``mamba`` blocks, frontends and meshes are not ported yet
-and raise `NotImplementedError` (ROADMAP.md §1).
+MoE and MLA layers, frontends and meshes are not ported yet and raise
+`NotImplementedError` (ROADMAP.md §1): the published Jamba config, with its
+experts, raises; its dense cut (``n_experts=0``) runs.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv as rwk
 from .config import ModelConfig
@@ -37,8 +40,10 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 class Block(nn.Module):
     """One layer: ``ln``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, optional
     ``post_ln``, ``ffn_ln``, ``ffn`` {w_gate, w_up, w_down | w_up, b_up,
-    w_down, b_down}, optional ``post_ffn_ln``; an ``rwkv`` layer has ``ln``,
-    ``rwkv`` (time and channel mix), optional ``post_ln`` and ``ffn_ln``."""
+    w_down, b_down}, optional ``post_ffn_ln``; a ``mamba`` layer has
+    ``mamba`` {in_proj, conv_w, ...} in place of ``attn``; an ``rwkv`` layer
+    has ``ln``, ``rwkv`` (time and channel mix), optional ``post_ln`` and
+    ``ffn_ln``."""
 
     def __init__(self, kind: str, p: dict):
         super().__init__()
@@ -78,10 +83,10 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: ROADMAP.md §1, item 11")
     for kind in cfg.block_pattern:
-        if kind == "mamba":
-            raise NotImplementedError(f"{cfg.name}: mamba blocks are not ported yet: ROADMAP.md §1, item 5")
-        if kind not in ("attn", "attn_local", "rwkv"):
+        if kind not in ("attn", "attn_local", "mamba", "rwkv"):
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+    if cfg.ssm_io_bf16:
+        raise NotImplementedError(f"{cfg.name}: ssm_io_bf16 (bf16 scan inputs) is not ported")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -103,6 +108,8 @@ def _init_block(generator, cfg: ModelConfig, kind: str) -> dict:
     p = {"ln": zeros()}
     if kind == "rwkv":
         p["rwkv"] = rwk.init_rwkv_params(generator, cfg, dt)
+    elif kind == "mamba":
+        p["mamba"] = mam.init_mamba_params(generator, cfg, dt)
     else:
         p["attn"] = attn.init_attn_params(generator, cfg, dt)
     if cfg.post_norm:
@@ -118,11 +125,12 @@ def _init_block(generator, cfg: ModelConfig, kind: str) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     """Random parameters of the reference's law, on the generator's device."""
+    kinds = layer_kinds(cfg)                  # raises for what is not ported, before allocating
     dt = dtype_of(cfg)
     d = cfg.d_model
     embed = dense_init(generator, (cfg.vocab, d), scale=0.02, dtype=dt)
     head = None if cfg.tie_embeddings else dense_init(generator, (d, cfg.vocab), dtype=dt)
-    layers = [_init_block(generator, cfg, kind) for kind in layer_kinds(cfg)]
+    layers = [_init_block(generator, cfg, kind) for kind in kinds]
     final_ln = torch.zeros((d,), dtype=dt, device=generator.device)
     return LM(cfg, embed, final_ln, layers, head)
 
@@ -160,10 +168,14 @@ def _apply_block(blk: Block, cfg, x, positions, use_kernel):
         # final states are discarded, as in the reference's forward
         inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel)
         return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None)[0]
-    inner = attn.gqa_forward(
-        blk.attn, cfg, h, positions,
-        window=_block_window(cfg, blk.kind), use_kernel=use_kernel,
-    )
+    if blk.kind == "mamba":
+        # a fresh sequence from the zero state, its final state discarded
+        inner, _ = mam.mamba_forward(blk.mamba, cfg, h, None, use_kernel=use_kernel)
+    else:
+        inner = attn.gqa_forward(
+            blk.attn, cfg, h, positions,
+            window=_block_window(cfg, blk.kind), use_kernel=use_kernel,
+        )
     return _ffn(blk, cfg, x + _post(blk, cfg, inner))
 
 
@@ -191,9 +203,10 @@ def _no_mesh(mesh):
 
 def forward(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
     """Logits (B, S, V) of ``batch["tokens"]`` (B, S), and the auxiliary loss
-    (0 without MoE). ``use_kernel`` picks the attention's and the WKV
-    recurrence's route: "auto" (the CUDA kernels iff on a card), True (the
-    kernels; CPU tensors raise) or False (the plain versions)."""
+    (0 without MoE). ``use_kernel`` picks the route of the attention, the WKV
+    recurrence and the selective scan: "auto" (the CUDA kernels iff on a
+    card), True (the kernels; CPU tensors raise) or False (the plain
+    versions)."""
     _no_mesh(mesh)
     x, positions = _embed(params, cfg, batch)
     for blk in params.layers:
@@ -206,12 +219,19 @@ def forward(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]:
-    """One cache per layer: a KV cache (`attention.init_kv_cache`), or for an
-    ``rwkv`` layer its state {"shift", "wkv", "shift_c"} (`rwkv.init_rwkv_state`)."""
+    """One cache per layer: a KV cache (`attention.init_kv_cache`), for an
+    ``rwkv`` layer its state {"shift", "wkv", "shift_c"} (`rwkv.init_rwkv_state`),
+    for a ``mamba`` layer its state {"conv", "h"} (`mamba.init_mamba_state`)."""
     dt = dtype_of(cfg)
-    return [rwk.init_rwkv_state(cfg, batch, dt, device) if kind == "rwkv"
-            else attn.init_kv_cache(cfg, batch, max_len, _block_window(cfg, kind), dt, device)
-            for kind in layer_kinds(cfg)]
+
+    def one(kind):
+        if kind == "rwkv":
+            return rwk.init_rwkv_state(cfg, batch, dt, device)
+        if kind == "mamba":
+            return mam.init_mamba_state(cfg, batch, dt, device)
+        return attn.init_kv_cache(cfg, batch, max_len, _block_window(cfg, kind), dt, device)
+
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 @torch.no_grad()
@@ -228,7 +248,12 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None)
             x, c_c = _channel_mix(blk, cfg, x + _post(blk, cfg, inner), c)
             c.update(c_t, **c_c)
             continue
-        inner, _ = attn.gqa_decode(blk.attn, cfg, h, pos, c, window=_block_window(cfg, blk.kind))
+        if blk.kind == "mamba":
+            # one step of the plain recurrence from the carried state
+            inner, new = mam.mamba_forward(blk.mamba, cfg, h, c)
+            c.update(new)
+        else:
+            inner, _ = attn.gqa_decode(blk.attn, cfg, h, pos, c, window=_block_window(cfg, blk.kind))
         x = _ffn(blk, cfg, x + _post(blk, cfg, inner))
     return _head(params, cfg, x), cache
 

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels.fedsem_objective import kernel, ops, ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as flash_ops
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel, ops as scan_ops, ref as scan_ref
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel, ops as wkv_ops, ref as wkv_ref
 from repro_torch.models.attention import flash_attention as plain_flash
 from torch_port_util import assert_scores, grid_inputs
@@ -266,3 +267,126 @@ def test_rwkv_prefill_goes_through_the_kernel(card):
     x = torch.zeros((2, 3, cfg.d_model), device=card)
     with pytest.raises(ValueError, match="carried state"):
         R.time_mix(params.layers[0].rwkv, cfg, x, cache[0], use_kernel=True)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan
+# ---------------------------------------------------------------------------
+
+#: (atol, rtol) by y's type: float32 the JAX tests' 1e-4; bfloat16 one ulp of
+#: the output, since kernel and plain version evolve the same float32 state
+#: and differ only in the order of the sum over the state
+SCAN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-5, 2**-7)}
+
+
+def _scan_inputs(card, seed, B, S, di, N, dtype, model_law=False):
+    """x, dt, Bm, Cm, A, D of the reference test's law (x and dt in
+    ``dtype``, the rest float32); with ``model_law`` dt near the model's
+    softplus(log(expm1(0.01))) and A = -(1..N), as the initialised Jamba
+    has them."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=card)
+    x = draw(B, S, di)
+    if model_law:
+        dt = torch.nn.functional.softplus(-4.6 + 0.5 * draw(B, S, di))
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=card).repeat(di, 1)
+    else:
+        dt = torch.nn.functional.softplus(draw(B, S, di)) * 0.1
+        A = -draw(di, N).abs()
+    Bm, Cm = draw(B, S, N), draw(B, S, N)
+    D = 1.0 + 0.5 * draw(di)
+    return x.to(dtype), dt.to(dtype), Bm, Cm, A, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N", [
+    (1, 64, 128, 8), (2, 96, 64, 16),     # the reference's test shapes
+    (2, 77, 96, 16),                      # S not a chunk multiple, di not a block multiple
+    (1, 300, 200, 16),                    # several chunks, the last one ragged
+    (3, 5, 64, 8),                        # S shorter than one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_scan_kernel_matches_plain_version(card, B, S, di, N, dtype):
+    x, dt, Bm, Cm, A, D = _scan_inputs(card, 41, B, S, di, N, dtype)
+    before = scan_kernel.launches
+    got, final = scan_ops.mamba_scan(x, dt, Bm, Cm, A, D)
+    torch.cuda.synchronize()
+    assert scan_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and final is None
+    want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+    atol, rtol = SCAN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_takes_the_models_types(card):
+    """bfloat16 x, float32 dt, B and C as bfloat16 column views of one
+    projection (the model's), at the model's law over 1024 steps: read by
+    stride, the float32 recurrence on the same values, y rounded once to
+    x's type."""
+    x, dt, _, _, A, D = _scan_inputs(card, 42, 2, 1024, 256, 16, torch.float32, model_law=True)
+    gen = torch.Generator(device=card).manual_seed(43)
+    proj = torch.randn((2, 1024, 16 + 32), generator=gen, device=card).to(torch.bfloat16)
+    Bm, Cm = proj[..., 16:32], proj[..., 32:]
+    assert not Bm.is_contiguous()
+    x = x.to(torch.bfloat16)
+    got = scan_kernel.mamba_scan(x, dt, Bm, Cm, A, D)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+    atol, rtol = SCAN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, dt, Bm, Cm, A, D = _scan_inputs(card, 44, 1, 16, 64, 16, torch.float32)
+    with pytest.raises(ValueError, match="state size"):
+        scan_kernel.mamba_scan(x, dt, Bm[..., :4], Cm[..., :4], A[:, :4], D)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        scan_kernel.mamba_scan(x.half(), dt, Bm, Cm, A, D)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        scan_kernel.mamba_scan(x, dt.half(), Bm, Cm, A, D)
+    with pytest.raises(ValueError, match="differ in type"):
+        scan_kernel.mamba_scan(x, dt, Bm, Cm.to(torch.bfloat16), A, D)
+    with pytest.raises(ValueError, match="one shape"):
+        scan_kernel.mamba_scan(x, dt[:, :8], Bm, Cm, A, D)
+    with pytest.raises(ValueError, match="want Bm and Cm"):
+        scan_kernel.mamba_scan(x, dt, Bm[:, :8], Cm, A, D)
+    with pytest.raises(ValueError, match=r"want \(di, N\)"):
+        scan_kernel.mamba_scan(x, dt, Bm, Cm, A[:8], D)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scan_kernel.mamba_scan(x, dt, Bm, Cm, A.cpu(), D)
+    with pytest.raises(ValueError, match="not contiguous"):
+        scan_kernel.mamba_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, Bm, Cm, A, D)
+
+
+@pytest.mark.cuda
+def test_jamba_prefill_goes_through_the_kernels(card):
+    """The smoke Jamba cut (two periods, dense FFNs) on the card: one
+    selective-scan launch per Mamba layer and one flash launch per attention
+    layer, logits within float32 round-off of the plain routes'; decode
+    launches neither, and the scan kernel refuses a carried state rather than
+    handing it to the plain recurrence."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mamba as Ma, model as M
+    from repro_torch.models.config import smoke_variant
+
+    cfg = smoke_variant(get_config("jamba_1_5_large_398b")).scaled(n_experts=0, top_k=0)
+    kinds = M.layer_kinds(cfg)
+    params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator(device=card).manual_seed(1),
+                         device=card)
+    before = scan_kernel.launches, flash_kernel.launches
+    got = M.prefill(params, cfg, {"tokens": toks}, use_kernel=True)
+    torch.cuda.synchronize()
+    assert scan_kernel.launches == before[0] + kinds.count("mamba")
+    assert flash_kernel.launches == before[1] + kinds.count("attn")
+    want = M.prefill(params, cfg, {"tokens": toks}, use_kernel=False)
+    torch.testing.assert_close(got, want, atol=4e-5, rtol=1e-4)
+    cache = M.init_cache(cfg, 2, 16, card)
+    M.decode_step(params, cfg, toks[:, :1], 0, cache)
+    assert (scan_kernel.launches, flash_kernel.launches) == \
+        (before[0] + kinds.count("mamba"), before[1] + kinds.count("attn"))
+    x = torch.zeros((2, 3, cfg.d_model), device=card)
+    with pytest.raises(ValueError, match="carried state"):
+        Ma.mamba_forward(params.layers[0].mamba, cfg, x, cache[0], use_kernel=True)
