@@ -2,9 +2,10 @@
 
 Each kernel's ``csrc/*.cu`` is compiled with ``nvcc`` into a shared library
 with a plain C interface under ``build/repro_torch_kernels/`` at first use,
-and loaded with `ctypes`. The library's name carries a hash of the source and
-the flags, so an edited source is rebuilt and never loaded stale. Nothing is
-built when a module is imported.
+and loaded with `ctypes`. The library's name carries a hash of every file
+under the source's ``csrc/`` (the ``.cu`` and the headers it includes) and of
+the flags, so an edited source or header is rebuilt and never loaded stale.
+Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -55,7 +56,11 @@ class CudaLibrary:
 
     def build(self) -> tuple[pathlib.Path, str]:
         """Compile the source if needed; return (library, ptxas log)."""
-        tag = hashlib.sha1(self.source.read_bytes() + " ".join(self.flags).encode()).hexdigest()[:12]
+        h = hashlib.sha1(" ".join(self.flags).encode())
+        for f in sorted(p for p in self.source.parent.rglob("*") if p.is_file()):
+            h.update(f.relative_to(self.source.parent).as_posix().encode() + b"\0")
+            h.update(f.read_bytes())
+        tag = h.hexdigest()[:12]
         lib = BUILD_DIR / f"{self.name}-{tag}.so"
         if lib.exists():
             return lib, ""

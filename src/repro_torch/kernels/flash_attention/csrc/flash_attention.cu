@@ -15,13 +15,52 @@
 // written by stride (the head dim must be contiguous), so the model's layout
 // needs no transpose and no padding: the kernel masks the ragged end of S.
 //
-// What bounds it on this card: the causal (or band) FLOPs, 4 * hd per
-// unmasked (q, k) pair, are far above the ridge point, so the bound is the
-// tensor cores' rate. This first kernel does not reach for it: it is a
-// simple, correct fp32 kernel on the CUDA cores (no mma.sync/wgmma, no TMA),
-// and its loops are bound by shared-memory loads. Making it fast is later work.
+// Two kernels behind one entry point, chosen by dtype:
 //
-// Design: one block of 256 threads per (64 query rows, head, batch).
+// bfloat16: flash_fwd_kernel_sm90 (flash_fwd_sm90.cuh), on the tensor cores.
+//   What bounds it: the causal (or band) work, 4 * hd operations per
+//   unmasked (q, k) pair, is far above the ridge point, so the bound is the
+//   bf16 tensor-core rate. But the plain version (and the TPU kernel) keeps
+//   the probabilities P in float32 for P V, and the kernel is held to one
+//   bf16 ulp of it: P rounded once to bf16, as FlashAttention-2/3 and SDPA
+//   do, misses that gate by about 10x (tests/test_torch_flash_attention.py:
+//   test_bf16_kernel_needs_p_split_into_two_bf16_terms). So P V is computed as
+//   P_hi V + P_lo V, P_hi = bf16(P), P_lo = bf16(P - P_hi), two bf16
+//   products that keep P to about 2^-17: 6 * hd tensor-core operations a
+//   pair instead of 4 * hd, 1.5x the function's bound.
+//   Design: one block of 2 warpgroups (256 threads) per (128 query rows,
+//   head, batch); each warpgroup owns 64 query rows.
+//   * One thread issues TMA loads of the Q tile and of K/V tiles into a ring
+//     of 2 shared-memory stages, each completing on an mbarrier. A stage is
+//     refilled by the second warpgroup to be done with it, so neither waits
+//     for the other (a producer warpgroup with setmaxnreg was tried: ptxas
+//     then capped every thread at 168 registers and spilled).
+//   * Per kv tile of BK keys (128; 64 at hd 256): S = Q K^T by wgmma
+//     m64nBKk16 from shared memory (float32 accumulators: bf16 products are
+//     exact, so S differs from the plain version's only in summation
+//     order); scale, softcap (tanhf: tanh.approx would move a score near
+//     cap 50 by 0.02), masks only on tiles that cross the band's edge;
+//     online softmax in float32 registers, exp(s - m) as 2^x on the
+//     exponential unit of one FFMA'd argument (2 instructions to expf's
+//     about 8; about 2 ulp, far inside the gate); P_hi and P_lo
+//     packed from the accumulators, which already have the A-fragment
+//     layout; O = O corr + P_hi V + P_lo V by wgmma m64n(hd)k16, A from
+//     registers, V (MN-major) from shared memory. The O accumulator is
+//     hd / 2 floats a thread (128 at hd 256, which sets BK = 64 there);
+//     169 (hd 32) to 245 (hd 256) registers a thread, no spills.
+//   * Tiles are 128-byte-swizzled slabs of 64 hd columns (64-byte at
+//     hd 32), as TMA writes them and the wgmma descriptors read them.
+//   * Kv tiles wholly outside the block's causal/window band are never
+//     loaded; a tile outside one warpgroup's band is skipped by it.
+//   * Shared memory: 41 KB (hd 32) to 193 KB (hd 256).
+//   Blocks are launched longest rows first (grid y reversed).
+//
+// float32: flash_fwd_kernel, the first kernel of this port, on the CUDA
+//   cores. Its gates (2e-5 against the plain version) need full float32
+//   products, which no tensor-core type gives (TF32 keeps 10 bits), so it
+//   stays a simple fp32 kernel whose loops are bound by shared-memory
+//   loads, far from the float32 rate.
+//   Design: one block of 256 threads per (64 query rows, head, batch).
 //   * The Q tile is staged once in shared memory as fp32, transposed
 //     ([d][row], one float of padding per row against bank conflicts).
 //   * Kv tiles of 32 keys walk only the band the block can see: [q0 - window
@@ -36,9 +75,10 @@
 //     default, the launcher raises the block's dynamic shared memory limit
 //     (on every launch, so it holds on whichever device runs it).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -60,15 +100,10 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 struct Smem {  // sizes in floats
@@ -270,9 +305,11 @@ int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements, for the (batch,
-// seq, head) axes; the head dim is contiguous. Returns 0 or the CUDA error of
-// the launch (a refused launch never runs).
+// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
+// kernel). Strides are in elements, for the (batch, seq, head) axes; the head
+// dim is contiguous (bf16: base pointers and strides 16-byte aligned, as TMA
+// wants). Returns 0 or the CUDA error of the launch (a refused launch never
+// runs).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int B, int S, int H, int KV, int hd,
@@ -281,6 +318,13 @@ extern "C" int flash_attention_fwd(
     long long svb, long long svs, long long svh,
     long long sob, long long sos, long long soh,
     float scale, int causal, int window, float cap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    sm90::Params p{o, S, H, KV, {sob, sos, soh}, scale, causal, window, cap};
+    const long long sq[3] = {sqb, sqs, sqh}, sk[3] = {skb, sks, skh}, sv[3] = {svb, svs, svh};
+    return sm90::dispatch_hd(q, k, v, sq, sk, sv, p, B, hd, s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
@@ -297,8 +341,5 @@ extern "C" int flash_attention_fwd(
   p.causal = causal;
   p.window = window;
   p.cap = cap;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_hd<float>(p, B, hd, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(p, B, hd, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_hd<float>(p, B, hd, s);
 }

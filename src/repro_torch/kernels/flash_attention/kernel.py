@@ -1,8 +1,9 @@
 """Build, bind and launch the CUDA flash-attention kernel.
 
 ``csrc/flash_attention.cu`` (its header says what it replaces, what bounds
-it and how it is laid out) is built and loaded by `repro_torch.kernels.build`
-at first use. Nothing is built when this module is imported.
+it and how it is laid out: bfloat16 on the tensor cores, float32 on the CUDA
+cores) is built with its headers by `repro_torch.kernels.build` at first
+use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `flash_attention` takes CUDA
 tensors and raises on anything else or on a failed launch. Which inputs reach
@@ -57,7 +58,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """Attention of q (B, S, H, hd) over k/v (B, S, KV, hd) -> (B, S, H, hd).
 
     Float32 or bfloat16 CUDA tensors of one type on one card, the head dim
-    contiguous, hd in `HEAD_DIMS`, H a multiple of KV. Keys at positions
+    contiguous, hd in `HEAD_DIMS`, H a multiple of KV. bfloat16 goes to the
+    tensor-core kernel, whose TMA loads want each of q, k, v to start on 16
+    bytes and its (batch, seq, head) strides to be multiples of 8 elements,
+    and at most 65535 blocks of 128 query rows; anything else raises (nothing
+    falls back to the float32 kernel or the plain version). Keys at positions
     > the query's are masked if ``causal``, and at qpos - kpos >= ``window``
     if a window is given; ``cap`` is the softcap of the scores.
     """
@@ -94,6 +99,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])):
+            raise ValueError(
+                f"flash_attention kernel: bf16 {name} must start on 16 bytes with (batch, seq, "
+                f"head) strides multiples of 8 elements for the tensor-core kernel's TMA loads, "
+                f"got address % 16 = {t.data_ptr() % 16}, strides {t.stride()[:3]}"
+            )
+    if q.dtype == torch.bfloat16 and -(-S // 128) > 65535:
+        raise ValueError(f"flash_attention kernel: S={S} > 65535 blocks of 128 query rows")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -134,3 +134,46 @@ def test_kernel_scale_is_the_plain_versions():
     for hd in kernel.HEAD_DIMS:
         plain = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
         assert kernel.scale_of(hd) == float(plain)
+
+
+#: the bf16 gate the CUDA kernel is held to on the card (`FLASH_TOL` in
+#: chip_smoke.py and tests/test_torch_kernels_cuda.py): one bf16 ulp of the
+#: plain version's output
+BF16_GATE = (1e-4, 2**-7)
+
+
+def _p_rounded(q, k, v, *, cap, split):
+    """The bf16 tensor-core kernel's rounding of P, in plain PyTorch: causal
+    scores and softmax in float32 from bf16 q and k, then P V with P rounded
+    once to bf16 (P_hi) or split into two bf16 terms, P_hi + bf16(P - P_hi)
+    (``split``); V is bf16, so the products are exact and only the sums are
+    float32, as on the tensor cores. Out in bf16."""
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (x.float().transpose(1, 2).repeat_interleave(G, 1) for x in (k, v))
+    s = cap * torch.tanh((qf @ kf.transpose(-1, -2)) * kernel.scale_of(hd) / cap)
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    pv = hi @ vf
+    if split:
+        pv = pv + (p - hi).to(torch.bfloat16).float() @ vf
+    return (pv / p.sum(-1, keepdim=True)).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_bf16_kernel_needs_p_split_into_two_bf16_terms(hd):
+    """Why the bf16 kernel computes P V as P_hi V + P_lo V (6 hd tensor-core
+    operations a pair instead of 4 hd): with P rounded once to bf16, as
+    FlashAttention-2/3 and SDPA round it, the output misses the one-ulp gate
+    against the float32 plain version; with the split it stays inside."""
+    _, (q, k, v) = _qkv(6, 1, 512, 4, 2, hd, "bfloat16")
+    pos = torch.arange(512, dtype=torch.int32)
+    want = plain_flash(q, k, v, q_positions=pos, kv_positions=pos, causal=True, cap=50.0).float()
+    atol, rtol = BF16_GATE
+    lim = atol + rtol * want.abs()
+    split = (_p_rounded(q, k, v, cap=50.0, split=True).float() - want).abs() / lim
+    once = (_p_rounded(q, k, v, cap=50.0, split=False).float() - want).abs() / lim
+    assert float(split.max()) <= 1.0
+    assert float(once.max()) > 4.0

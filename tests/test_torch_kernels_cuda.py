@@ -110,23 +110,40 @@ def test_flash_kernel_matches_plain_version(card, B, S, H, KV, hd, dtype):
     (True, 64, None), (True, None, 50.0), (False, None, None), (False, 48, None),
     (True, 64, 50.0), (True, 1, None),
 ])
-def test_flash_kernel_masks_and_softcap(card, causal, window, cap):
-    q, k, v = _qkv(card, 22, 2, 257, 4, 2, 64, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_masks_and_softcap(card, causal, window, cap, dtype):
+    q, k, v = _qkv(card, 22, 2, 257, 4, 2, 64, dtype)
     got = flash_kernel.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
     want = _plain(q, k, v, causal=causal, window=window, cap=cap)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_inputs(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_reads_strided_inputs(card, dtype):
     """q, k, v as views of one fused projection (the head dim contiguous)."""
     gen = torch.Generator(device=card).manual_seed(23)
-    fused = torch.randn((2, 200, 4 + 2 + 2, 64), generator=gen, device=card)
+    fused = torch.randn((2, 200, 4 + 2 + 2, 64), generator=gen, device=card).to(dtype)
     q, k, v = fused[:, :, :4], fused[:, :, 4:6], fused[:, :, 6:]
     assert not q.is_contiguous()
     got = flash_kernel.flash_attention(q, k, v, causal=True, window=50)
     want = _plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=50)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [200, 1000])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_kernel_bf16_ragged_tiles(card, S, hd):
+    """S not a multiple of the tensor-core kernel's 128 query rows or its kv
+    tiles (128 keys, 64 at hd 256), with GQA, at every head dim."""
+    q, k, v = _qkv(card, 25, 2, S, 4, 2, hd, torch.bfloat16)
+    got = flash_kernel.flash_attention(q, k, v, causal=True)
+    want = _plain(q, k, v, causal=True)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -142,6 +159,29 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
         flash_kernel.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="not contiguous"):
         flash_kernel.flash_attention(q, k.transpose(-1, -2).contiguous().transpose(-1, -2), v)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_bf16_views_tma_cannot_load(card):
+    """The tensor-core kernel's TMA loads want 16-byte starts and strides;
+    other bf16 views raise instead of falling back."""
+    gen = torch.Generator(device=card).manual_seed(26)
+    fused = torch.randn((1, 64, 4, 72), generator=gen, device=card).to(torch.bfloat16)
+    q = fused[..., 1:65]                                  # starts 2 bytes in
+    k = v = fused[:, :, :2, 8:72]
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_kernel.flash_attention(q, k, v)
+    flat = torch.randn((1, 64, 68), generator=gen, device=card).to(torch.bfloat16)
+    odd = flat[..., :64].unsqueeze(2)                     # seq stride 68 elements
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_kernel.flash_attention(odd, odd, odd)
+    before = flash_kernel.launches
+    got = flash_kernel.flash_attention(fused[..., 8:72], k, v)   # aligned views run
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    want = _plain(fused[..., 8:72].contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 # ---------------------------------------------------------------------------
