@@ -10,7 +10,9 @@ the CPU in place of the card):
    `flash_attention`, `rwkv6_scan`, `mamba_scan`) from the sources in this
    checkout, one nvcc (sm_90a) each, all at once, and print ptxas' report;
    the flash library's bf16 kernel (one instantiation per head dim) must
-   hold `HGMMA` (wgmma) instructions in its SASS (`cuobjdump -sass`);
+   hold `HGMMA` (wgmma) instructions in its SASS (`cuobjdump -sass`); the
+   WKV6 and selective-scan kernels' registers are printed, and no
+   instantiation of either may spill;
 2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
    selection, (48, 1, 10) for the per-iteration trace), at the exhaustive
@@ -72,18 +74,20 @@ the CPU in place of the card):
 7. the WKV6 kernel of `repro_torch.kernels.rwkv6_scan` against its plain
    version (the step-by-step recurrence of its ``ref.py``) on the card: the
    reference's test shapes ((1, 2, 128, 64) and (2, 4, 96, 32), float32 and
-   bfloat16), a ragged S, and the full-width RWKV-6 1.6B layer (B 1,
-   S 4096, H 32, hd 64, in the model's (B, S, H, hd) layout, w near the
-   model's exp(-exp(-6))) all in float32 and in the types the bf16 model
-   hands over (bf16 r/k/v, float32 w and y). Tolerance by y's type,
-   absolute plus relative: float32 the JAX tests' 1e-4; bfloat16 one bf16
-   ulp of the output (rtol 2**-7, atol 1e-5), since kernel and plain
-   version evolve the same float32 state and differ only in the order of
-   the sum over the key index. The kernel is timed on the device
-   (CUDA-graph replay) beside its bound (the function's 5 float32
-   operations per step, key and value column, not the kernel's 7); the plain
-   version by graph replay up to S = 1024 and by events around one eager
-   call at S = 4096 (a graph of its 28,000 launches is not worth its
+   bfloat16), a ragged S, a strong decay (w = exp(-exp(1 + 0.5 z)), near
+   0.07, at (2, 4, 1024, 64)), and the full-width RWKV-6 1.6B layer (B 1,
+   S 4096, H 32, hd 64, w near the model's exp(-exp(-6))) all in float32
+   and in the types the bf16 model hands over (bf16 r/k/v, float32 w and
+   y); the strong-decay and model-law cases in the model's (B, S, H, hd)
+   layout. Tolerance by y's type, absolute plus relative: float32 the JAX
+   tests' 1e-4; bfloat16 one bf16 ulp of the output (rtol 2**-7, atol
+   1e-5), since kernel and plain version evolve the same float32 state,
+   rounded alike, and differ only in y's sum (the bonus term factored out
+   and the sum over the key index in another order). The kernel is timed on
+   the device (CUDA-graph replay) beside its bound (the function's float32
+   operations: 5 per step, key and value column, an FMA counted as 2); the
+   plain version by graph replay up to S = 1024 and by events around one
+   eager call at S = 4096 (a graph of its 28,000 launches is not worth its
    capture). No single PyTorch call computes WKV6;
 8. the RWKV slice: `rwkv6_1_6b` at full width in bfloat16 from a seeded
    `torch.Generator`; `prefill(use_kernel=True)` on B = 1, S = 4096 tokens
@@ -95,13 +99,17 @@ the CPU in place of the card):
    plain version (the step-by-step recurrence of its ``ref.py``) on the card:
    the reference's test cases ((B, S, di, N) = (1, 64, 128, 8) and
    (2, 96, 64, 16); x and dt float32 or bfloat16, B/C float32), a ragged S
-   and di, B/C as strided column views of one projection, and the
-   full-width Jamba-1.5-Large layer (1, 4096, 16384, 16) all in float32 and
-   in the types the bf16 model hands over (bf16 x, float32 dt, bf16 B/C
-   views; y in x's type), with dt and A of the initialised model's law.
-   Tolerance by y's type: float32 the JAX tests' 1e-4; bfloat16 one bf16 ulp (rtol
-   2**-7, atol 1e-5), since kernel and plain version evolve the same float32
-   state and differ only in the order of the sum over the state. Timed as
+   and di, B/C as strided column views of one projection, dt A down to
+   about -100 (dt = softplus(z + 2): exp(dt A) underflows, and the kernel's
+   exponential flushes what would be subnormal to 0), and the full-width
+   Jamba-1.5-Large layer (1, 4096, 16384, 16) all in float32 and in the
+   types the bf16 model hands over (bf16 x, float32 dt, bf16 B/C views; y
+   in x's type), with dt and A of the initialised model's law. Tolerance
+   by y's type: float32 the JAX tests' 1e-4; bfloat16 one bf16 ulp (rtol
+   2**-7, atol 1e-5): kernel and plain version evolve a float32 state with
+   every operation rounded alike but the exponential (2^(dt A log2 e) on
+   the exponential unit, a few ulp from `expf`), and sum over the state in
+   another order. Timed as
    phase 7, beside its bound (the bytes, or the operations: the
    exponentials shared between the card's exponential unit, 16 a clock per
    SM, and polynomials on the float32 pipe beside the other float32
@@ -187,6 +195,11 @@ LM_F32_ULP_FACTOR = 2.0
 #: the symbol of each LM kernel, as it appears in a profiler trace
 KERNEL_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "rwkv6_scan": "wkv6_fwd_kernel",
                   "mamba_scan": "mamba_scan_fwd_kernel"}
+#: the main path's instantiation of the WKV6 kernel (bf16 r/k/v, float32 w
+#: and y, hd 64) and of the selective scan (bf16 x and y, float32 dt, bf16
+#: B/C, N 16), as they appear in the mangled names ptxas reports
+MAIN_INSTANTIATION = {"rwkv6_scan": "wkv6_fwd_kernelI13__nv_bfloat16ffLi64E",
+                      "mamba_scan": "mamba_scan_fwd_kernelI13__nv_bfloat16fS1_Li16E"}
 #: every kernel of the port, by module name under `repro_torch.kernels`
 KERNELS = ("fedsem_objective", "flash_attention", "rwkv6_scan", "mamba_scan")
 #: the kernel a prefill launches once for each layer of a block kind
@@ -324,6 +337,28 @@ def flash_tensor_core_sass(lib_path) -> dict:
     check(sorted(counts) == sorted(HEAD_DIMS) and all(counts.values()),
           f"flash: the bf16 kernel's SASS lacks HGMMA at some head dim: {counts}")
     return counts
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel function of a ptxas ``-v`` log: {mangled name: dict(
+    registers, spill_bytes (stores + loads), stack_bytes)}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$", line.strip())
+        if found:
+            fn = found.group(1)
+            out.setdefault(fn, dict(registers=None, spill_bytes=0, stack_bytes=0))
+            continue
+        if fn is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[fn]["stack_bytes"] = int(spill.group(1))
+            out[fn]["spill_bytes"] = int(spill.group(2)) + int(spill.group(3))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[fn]["registers"] = int(regs.group(1))
+    return out
 
 
 def phase_kernel(device):
@@ -645,9 +680,9 @@ def phase_flash(device):
 def wkv_bound(B, H, S, hd, dtype, w_dtype, out_dtype):
     """(ms, 'bytes'|'operations'): the float32 operations the function needs
     over the float32 peak, against r, k, v (``dtype``) and w read once, y
-    written once and u (float32) read once. The function needs fewer
-    operations than the kernel evaluates: y_j = sum_i r_i S_ij + v_j
-    sum_i r_i u_i k_i factors the bonus term out of the (key, column) loop."""
+    written once and u (float32) read once. The function needs y_j =
+    sum_i r_i S_ij + v_j sum_i r_i u_i k_i, the bonus term factored out of
+    the (key, column) loop, as the kernel evaluates it."""
     import torch
 
     size = lambda dt: torch.tensor([], dtype=dt).element_size()
@@ -657,16 +692,24 @@ def wkv_bound(B, H, S, hd, dtype, w_dtype, out_dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-#: phase 7's cases: (name, (B, H, S, hd), type of r/k/v, of w, of y); the
-#: full-width cases in the model's layout with w near its exp(-exp(-6)):
-#: all float32, and the types the bf16 model hands over (the main path's)
+#: phase 7's cases: (name, (B, H, S, hd), type of r/k/v, of w, of y, the law
+#: of w: the reference test's sigmoid law, the model's exp(-exp(-6 + 0.5 z))
+#: (near 0.9975) or a strong decay exp(-exp(1 + 0.5 z)) (near 0.07)); the
+#: model's and the strong law in the model's (B, S, H, hd) layout. The
+#: full-width cases: all float32, and the types the bf16 model hands over
+#: (the main path's)
 WKV_CASES = [
-    *((f"reference (1, 2, 128, 64) {dt}", (1, 2, 128, 64), dt, dt, dt) for dt in ("float32", "bfloat16")),
-    *((f"reference (2, 4, 96, 32) {dt}", (2, 4, 96, 32), dt, dt, dt) for dt in ("float32", "bfloat16")),
-    *((f"ragged S {dt}", (2, 3, 77, 64), dt, dt, dt) for dt in ("float32", "bfloat16")),
-    ("rwkv6_1_6b layer float32", (1, 32, 4096, 64), "float32", "float32", "float32"),
-    ("rwkv6_1_6b layer", (1, 32, 4096, 64), "bfloat16", "float32", "float32"),
+    *((f"reference (1, 2, 128, 64) {dt}", (1, 2, 128, 64), dt, dt, dt, "reference")
+      for dt in ("float32", "bfloat16")),
+    *((f"reference (2, 4, 96, 32) {dt}", (2, 4, 96, 32), dt, dt, dt, "reference")
+      for dt in ("float32", "bfloat16")),
+    *((f"ragged S {dt}", (2, 3, 77, 64), dt, dt, dt, "reference") for dt in ("float32", "bfloat16")),
+    ("strong decay", (2, 4, 1024, 64), "bfloat16", "float32", "float32", "strong"),
+    ("rwkv6_1_6b layer float32", (1, 32, 4096, 64), "float32", "float32", "float32", "model"),
+    ("rwkv6_1_6b layer", (1, 32, 4096, 64), "bfloat16", "float32", "float32", "model"),
 ]
+#: the (mean, scale) of the normal z in w = exp(-exp(mean + scale z)) by law
+WKV_DECAY_LAWS = {"model": (-6.0, 0.5), "strong": (1.0, 0.5)}
 #: the phase-7 case at the shape and types the RWKV prefill launches the kernel with
 WKV_MAIN = "rwkv6_1_6b layer"
 
@@ -679,14 +722,14 @@ def phase_wkv(device):
 
     gen = torch.Generator(device=device).manual_seed(2468)
     cases = []
-    for name, (B, H, S, hd), dt, dt_w, dt_y in WKV_CASES:
+    for name, (B, H, S, hd), dt, dt_w, dt_y, law in WKV_CASES:
         dtype, w_dtype, out_dtype = (getattr(torch, t) for t in (dt, dt_w, dt_y))
-        full = name.startswith("rwkv6_1_6b layer")
         # (B, S, H, hd) tensors seen as (B, H, S, hd) views, as the model hands them over
         draw = lambda: torch.randn((B, S, H, hd), generator=gen, device=device).transpose(1, 2)
         r, k, v = draw(), draw(), draw()
-        if full:
-            w = torch.exp(-torch.exp(-6.0 + 0.5 * draw()))
+        if law in WKV_DECAY_LAWS:
+            mean, scale = WKV_DECAY_LAWS[law]
+            w = torch.exp(-torch.exp(mean + scale * draw()))
         else:   # the reference test's law
             w = torch.sigmoid(draw()) * 0.5 + 0.45
         u = torch.randn((H, hd), generator=gen, device=device)
@@ -748,19 +791,23 @@ def scan_bound(B, S, di, N, x_dtype, dt_dtype, b_dtype):
 
 
 #: phase 10's cases: (name, (B, S, di, N), type of x (and y), of dt, of B/C,
-#: the model's law (dt near softplus(log(expm1(0.01))), A = -(1..N), B/C as
-#: column views of one projection) or the reference test's)
+#: the law: the reference test's, the model's (dt = softplus(-4.6 + 0.5 z),
+#: near softplus(log(expm1(0.01))); A = -(1..N); B/C as column views of one
+#: projection) or a deep one (the model's with dt = softplus(z + 2), so that
+#: dt A reaches about -100, where exp(dt A) underflows))
 SCAN_CASES = [
-    *((f"reference (1, 64, 128, 8) {dt}", (1, 64, 128, 8), dt, dt, "float32", False)
+    *((f"reference (1, 64, 128, 8) {dt}", (1, 64, 128, 8), dt, dt, "float32", "reference")
       for dt in ("float32", "bfloat16")),
-    *((f"reference (2, 96, 64, 16) {dt}", (2, 96, 64, 16), dt, dt, "float32", False)
+    *((f"reference (2, 96, 64, 16) {dt}", (2, 96, 64, 16), dt, dt, "float32", "reference")
       for dt in ("float32", "bfloat16")),
-    *((f"ragged S and di {dt}", (2, 77, 96, 16), dt, dt, "float32", False)
+    *((f"ragged S and di {dt}", (2, 77, 96, 16), dt, dt, "float32", "reference")
       for dt in ("float32", "bfloat16")),
-    ("strided B/C", (2, 512, 1024, 16), "bfloat16", "float32", "bfloat16", True),
+    ("strided B/C", (2, 512, 1024, 16), "bfloat16", "float32", "bfloat16", "model"),
+    ("dt A to -100", (1, 1024, 1024, 16), "bfloat16", "float32", "bfloat16", "deep"),
     ("jamba_1_5_large_398b layer float32", (1, 4096, 16384, 16), "float32", "float32", "float32",
-     True),
-    ("jamba_1_5_large_398b layer", (1, 4096, 16384, 16), "bfloat16", "float32", "bfloat16", True),
+     "model"),
+    ("jamba_1_5_large_398b layer", (1, 4096, 16384, 16), "bfloat16", "float32", "bfloat16",
+     "model"),
 ]
 #: the phase-10 case at the shape and types the Jamba prefill launches the kernel with
 SCAN_MAIN = "jamba_1_5_large_398b layer"
@@ -778,11 +825,12 @@ def phase_scan(device):
     gen = torch.Generator(device=device).manual_seed(1357)
     draw = lambda *shape: torch.randn(shape, generator=gen, device=device)
     cases = []
-    for name, (B, S, di, N), tx, td, tb, model_law in SCAN_CASES:
+    for name, (B, S, di, N), tx, td, tb, law in SCAN_CASES:
         x_dtype, dt_dtype, b_dtype = (getattr(torch, t) for t in (tx, td, tb))
         x = draw(B, S, di).to(x_dtype)
-        if model_law:   # as the initialised Jamba has them; B and C views of x_proj's output
-            dt = F.softplus(-4.6 + 0.5 * draw(B, S, di))
+        if law != "reference":   # as the initialised Jamba has them; B and C views of x_proj's output
+            z = draw(B, S, di)
+            dt = F.softplus(z + 2.0 if law == "deep" else -4.6 + 0.5 * z)
             A = -torch.arange(1, N + 1, dtype=torch.float32, device=device).repeat(di, 1)
             proj = draw(B, S, SCAN_PROJ_EXTRA + 2 * N).to(b_dtype)
             Bm, Cm = proj[..., SCAN_PROJ_EXTRA:SCAN_PROJ_EXTRA + N], proj[..., SCAN_PROJ_EXTRA + N:]
@@ -805,7 +853,8 @@ def phase_scan(device):
         rec = dict(case=name, shape=[B, S, di, N], x_dtype=tx, dt_dtype=td, b_dtype=tb,
                    strided_bc=not Bm.is_contiguous(), atol=atol, rtol=rtol,
                    max_abs_err=float(err.max()), out_mean_abs=float(want.float().abs().mean()),
-                   dt_mean=float(dt.float().mean()), ms=graph_ms(run_k))
+                   dt_mean=float(dt.float().mean()),
+                   min_dt_a=float((dt.float().amax() * A.amin()).cpu()), ms=graph_ms(run_k))
         del got, want, err
         if S <= 1024:
             rec["plain_ms"], rec["plain_timing"] = graph_ms(run_p, 1, 5), "graph replay"
@@ -821,7 +870,7 @@ def phase_scan(device):
               f"polynomials; all on the exponential unit {rec['bound_exp_ms']:.5f}, float32 "
               f"{rec['bound_fp32_ms']:.5f}, bytes {rec['bound_bytes_ms']:.5f}); max abs err "
               f"{rec['max_abs_err']:.3g} (mean |y| {rec['out_mean_abs']:.3g}, mean dt "
-              f"{rec['dt_mean']:.5f})", flush=True)
+              f"{rec['dt_mean']:.5f}, dt A down to {rec['min_dt_a']:.1f})", flush=True)
     torch.cuda.synchronize()
     return cases
 
@@ -1072,6 +1121,23 @@ def main() -> int:
         print(f"build: {path.name} (all builds together: {build_s:.2f} s)", flush=True)
         for line in log.strip().splitlines():
             print(f"  ptxas: {line.strip()}")
+    # the WKV6 and scan kernels: registers of every instantiation, no spills
+    ptxas = {}
+    for k in (wkv_kernel, scan_kernel):
+        name = k.__name__.split(".")[-2]
+        rep = ptxas_report(built[all_kernels.index(k)][1])
+        if not rep:
+            print(f"ptxas {name}: library built earlier, no report", flush=True)
+            continue
+        regs = sorted(r["registers"] for r in rep.values())
+        spills = {f: r["spill_bytes"] for f, r in rep.items() if r["spill_bytes"]}
+        main_fn = next(f for f in rep if MAIN_INSTANTIATION[name] in f)
+        ptxas[name] = dict(main=rep[main_fn], registers=[regs[0], regs[-1]],
+                           instantiations=len(rep), spilling=spills)
+        print(f"ptxas {name}: {len(rep)} instantiations, {regs[0]}-{regs[-1]} registers, main "
+              f"path's {rep[main_fn]['registers']} registers, {rep[main_fn]['stack_bytes']} bytes "
+              f"stack; spills: {spills or 'none'}", flush=True)
+        check(not spills, f"{name}: ptxas spills registers: {spills}")
     flash_sass = flash_tensor_core_sass(built[all_kernels.index(flash_kernel)][0])
     print("flash bf16 kernel (flash_fwd_kernel_sm90) SASS: "
           + ", ".join(f"hd {hd}: {n} HGMMA" for hd, n in sorted(flash_sass.items())), flush=True)
@@ -1152,6 +1218,7 @@ def main() -> int:
         "bound_ms": main_wkv["bound_ms"],
         "bound_by": main_wkv["bound_by"],
         "library_ms": None,
+        "ptxas": ptxas.get("rwkv6_scan"),
     }, {
         "name": "mamba_scan",
         "route": "cuda",
@@ -1165,6 +1232,7 @@ def main() -> int:
         "bound_ms": main_scan["bound_ms"],
         "bound_by": main_scan["bound_by"],
         "library_ms": None,
+        "ptxas": ptxas.get("mamba_scan"),
     }]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -26,6 +26,15 @@ BASE_FLAGS = (
 )
 
 
+def aligned16(t) -> bool:
+    """Whether a kernel may move ``t`` in 16-byte pieces (cp.async): its
+    start and the byte strides of its dims longer than 1, all but the last,
+    are multiples of 16 bytes (the last dim is contiguous)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st * size % 16 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME``/``$CUDA_PATH``, then ``PATH``, then
     ``/usr/local/cuda``."""

@@ -5,11 +5,12 @@ how it is laid out) is built and loaded by `repro_torch.kernels.build` at
 first use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `objective_batch` takes CUDA
-tensors and raises on anything else or on a failed launch. Which inputs
-reach it is `ops.py`'s choice. `prepare` + `launch` are its two halves (checks, then the launch alone),
-for callers that launch the same arguments repeatedly, such as a timing
-loop. `launches` counts the kernel's launches (set it to 0 to start a
-count).
+tensors and raises on anything else or on a failed launch. It launches with
+the inputs' card current (`torch.cuda.device`), on that card's current
+stream. Which inputs reach it is `ops.py`'s choice. `prepare` + `launch` are
+its two halves (checks, then the launch alone), for callers that launch the
+same arguments repeatedly, such as a timing loop. `launches` counts the
+kernel's launches (set it to 0 to start a count).
 """
 from __future__ import annotations
 
@@ -121,11 +122,12 @@ def launch(args: Launch) -> torch.Tensor:
     if args.B == 0 or args.G == 0:
         return args.out
     lib = load()
-    stream = torch.cuda.current_stream(args.out.device).cuda_stream
-    err = lib.fedsem_objective_batch(
-        *(t.data_ptr() for t in args.ins), args.out.data_ptr(),
-        args.B, args.G, args.N, args.eta, args.xi_eta, args.check_feasible, stream,
-    )
+    with torch.cuda.device(args.out.device):
+        err = lib.fedsem_objective_batch(
+            *(t.data_ptr() for t in args.ins), args.out.data_ptr(),
+            args.B, args.G, args.N, args.eta, args.xi_eta, args.check_feasible,
+            torch.cuda.current_stream(args.out.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"fedsem_objective_batch launch failed: CUDA error {err}")
     launches += 1

@@ -6,9 +6,10 @@ cores) is built with its headers by `repro_torch.kernels.build` at first
 use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `flash_attention` takes CUDA
-tensors and raises on anything else or on a failed launch. Which inputs reach
-it is `ops.py`'s choice. `launches` counts the kernel's launches (set it to 0
-to start a count).
+tensors and raises on anything else or on a failed launch. It launches with
+the inputs' card current (`torch.cuda.device`), on that card's current
+stream. Which inputs reach it is `ops.py`'s choice. `launches` counts the
+kernel's launches (set it to 0 to start a count).
 """
 from __future__ import annotations
 
@@ -112,13 +113,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         return out
     global launches
     lib = load()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        B, S, H, KV, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        scale_of(hd), int(bool(causal)), int(window or 0), float(cap or 0.0), stream,
-    )
+    # the current device for the launch and for the TMA descriptors' encoding
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            B, S, H, KV, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            scale_of(hd), int(bool(causal)), int(window or 0), float(cap or 0.0),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     launches += 1

@@ -5,9 +5,10 @@ how it is laid out) is built and loaded by `repro_torch.kernels.build` at
 first use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `mamba_scan` takes CUDA tensors
-and raises on anything else or on a failed launch. Which inputs reach it is
-`ops.py`'s choice. `launches` counts the kernel's launches (set it to 0 to
-start a count).
+and raises on anything else or on a failed launch. It launches with the
+inputs' card current (`torch.cuda.device`), on that card's current stream.
+Which inputs reach it is `ops.py`'s choice. `launches` counts the kernel's
+launches (set it to 0 to start a count).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import pathlib
 
 import torch
 
-from ..build import BASE_FLAGS, CudaLibrary
+from ..build import BASE_FLAGS, CudaLibrary, aligned16
 
 #: kernel launches since the counter was last set to 0
 launches = 0
@@ -32,7 +33,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.mamba_scan_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 8
         + [ctypes.c_void_p]
     )
@@ -97,14 +98,15 @@ def mamba_scan(x, dt, Bm, Cm, A, D) -> torch.Tensor:
     Af, Df = A.float().contiguous(), D.float().contiguous()
     global launches
     lib = load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.mamba_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), Af.data_ptr(),
-        Df.data_ptr(), y.data_ptr(),
-        _DTYPES[x.dtype], _DTYPES[dt.dtype], _DTYPES[Bm.dtype], B, S, di, N,
-        *(s for t in (x, dt, Bm, Cm) for s in t.stride()[:2]),
-        stream,
-    )
+    with torch.cuda.device(x.device):
+        err = lib.mamba_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), Af.data_ptr(),
+            Df.data_ptr(), y.data_ptr(),
+            _DTYPES[x.dtype], _DTYPES[dt.dtype], _DTYPES[Bm.dtype], B, S, di, N,
+            int(aligned16(x) and aligned16(dt)),
+            *(s for t in (x, dt, Bm, Cm) for s in t.stride()[:2]),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"mamba_scan_fwd launch failed: CUDA error {err}")
     launches += 1

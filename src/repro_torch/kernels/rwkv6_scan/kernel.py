@@ -5,9 +5,10 @@ how it is laid out) is built and loaded by `repro_torch.kernels.build` at
 first use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `rwkv6_scan` takes CUDA tensors
-and raises on anything else or on a failed launch. Which inputs reach it is
-`ops.py`'s choice. `launches` counts the kernel's launches (set it to 0 to
-start a count).
+and raises on anything else or on a failed launch. It launches with the
+inputs' card current (`torch.cuda.device`), on that card's current stream.
+Which inputs reach it is `ops.py`'s choice. `launches` counts the kernel's
+launches (set it to 0 to start a count).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import pathlib
 
 import torch
 
-from ..build import BASE_FLAGS, CudaLibrary
+from ..build import BASE_FLAGS, CudaLibrary, aligned16
 
 #: kernel launches since the counter was last set to 0
 launches = 0
@@ -32,7 +33,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.rwkv6_scan_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 15
         + [ctypes.c_void_p]
     )
@@ -94,13 +95,14 @@ def rwkv6_scan(r, k, v, w, u, out_dtype=None) -> torch.Tensor:
     uf = u.float().contiguous()
     global launches
     lib = load()
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = lib.rwkv6_scan_fwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uf.data_ptr(), y.data_ptr(),
-        _DTYPES[r.dtype], _DTYPES[w.dtype], _DTYPES[out_dtype], B, H, S, hd,
-        *(s for t in (r, k, v, w, y) for s in t.stride()[:3]),
-        stream,
-    )
+    with torch.cuda.device(r.device):
+        err = lib.rwkv6_scan_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uf.data_ptr(), y.data_ptr(),
+            _DTYPES[r.dtype], _DTYPES[w.dtype], _DTYPES[out_dtype], B, H, S, hd,
+            int(all(aligned16(t) for t in (r, k, v, w))),
+            *(s for t in (r, k, v, w, y) for s in t.stride()[:3]),
+            torch.cuda.current_stream(r.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_fwd launch failed: CUDA error {err}")
     launches += 1

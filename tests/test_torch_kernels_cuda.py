@@ -260,6 +260,61 @@ def test_wkv_kernel_reads_the_models_layout(card):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def _wkv_models_types(card, seed, B, H, S, hd, decay=-6.0):
+    """What the bf16 model hands the kernel: bf16 r/k/v and float32 w as
+    (B, H, S, hd) views of (B, S, H, hd) tensors, w = exp(-exp(decay + 0.5 z))
+    (the model's law near 0.9975 at decay -6, a strong decay at 1)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    draw = lambda: torch.randn((B, S, H, hd), generator=gen, device=card).transpose(1, 2)
+    r, k, v = (draw().to(torch.bfloat16) for _ in range(3))
+    w = torch.exp(-torch.exp(decay + 0.5 * draw()))
+    return r, k, v, w, torch.randn((H, hd), generator=gen, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 77, 300, 1025])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wkv_kernel_ragged_chunks(card, S, hd):
+    """S not a multiple of the kernel's chunk (hd / 2 steps, the run its
+    transposing shuffle pass sums over) in the model's types: the steps of
+    the last chunk past S load zeros and store nothing."""
+    args = _wkv_models_types(card, 36, 2, 3, S, hd)
+    got = wkv_kernel.rwkv6_scan(*args, torch.float32)
+    want = wkv_ref.rwkv6_scan(*args, out_dtype=torch.float32)[0]
+    atol, rtol = WKV_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wkv_kernel_strong_decay(card, hd):
+    """w = exp(-exp(1 + 0.5 z)), near 0.07: the state forgets within a few
+    steps, so y is about r (k v) u + r k_{t-1} v_{t-1} w and small."""
+    args = _wkv_models_types(card, 37, 2, 4, 1024, hd, decay=1.0)
+    got = wkv_kernel.rwkv6_scan(*args, torch.float32)
+    want = wkv_ref.rwkv6_scan(*args, out_dtype=torch.float32)[0]
+    atol, rtol = WKV_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_reads_views_cp_async_cannot(card):
+    """bf16 rows that start 2 bytes past a 16-byte boundary: the kernel
+    stages them with plain loads, not cp.async."""
+    gen = torch.Generator(device=card).manual_seed(38)
+    B, S, H, hd = 2, 100, 3, 64
+    base = [torch.randn((B, S, H * hd + 1), generator=gen, device=card).to(torch.bfloat16)
+            for _ in range(3)]
+    r, k, v = (x[:, :, 1:].view(B, S, H, hd).transpose(1, 2) for x in base)
+    assert r.data_ptr() % 16 and r.stride(2) % 8
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * torch.randn((B, H, S, hd), generator=gen, device=card)))
+    u = torch.randn((H, hd), generator=gen, device=card)
+    got = wkv_kernel.rwkv6_scan(r, k, v, w, u, torch.float32)
+    want = wkv_ref.rwkv6_scan(r, k, v, w, u, out_dtype=torch.float32)[0]
+    atol, rtol = WKV_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
 @pytest.mark.cuda
 def test_wkv_wrapper_refuses_what_the_kernel_does_not_take(card):
     r, k, v, w, u = _rkvwu(card, 33, 1, 2, 16, 64, torch.float32)
@@ -378,6 +433,39 @@ def test_scan_kernel_takes_the_models_types(card):
 
 
 @pytest.mark.cuda
+def test_scan_kernel_exponential_underflows(card):
+    """dt = softplus(z + 2) with A = -(1..16): dt A reaches about -100, past
+    the -87.3 below which exp(dt A) is subnormal (the kernel's ex2.approx.ftz
+    flushes it to 0); the model's types."""
+    x, dt, _, _, A, D = _scan_inputs(card, 45, 1, 1024, 256, 16, torch.float32, model_law=True)
+    dt = torch.nn.functional.softplus(
+        torch.randn(dt.shape, generator=torch.Generator(device=card).manual_seed(46), device=card) + 2.0)
+    assert float(dt.max() * A.min()) < -87.3
+    gen = torch.Generator(device=card).manual_seed(47)
+    proj = torch.randn((1, 1024, 16 + 32), generator=gen, device=card).to(torch.bfloat16)
+    Bm, Cm, x = proj[..., 16:32], proj[..., 32:], x.to(torch.bfloat16)
+    got = scan_kernel.mamba_scan(x, dt, Bm, Cm, A, D)
+    want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+    assert bool(torch.isfinite(got.float()).all())
+    atol, rtol = SCAN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di", [100, 200, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_scan_kernel_ragged_channel_tiles(card, di, dtype):
+    """di not a multiple of the kernel's 64-channel tile: the last block's
+    channels past di load zeros and store nothing (at di 100 the bf16 rows
+    are not 16-byte multiples, and x and dt take plain loads)."""
+    x, dt, Bm, Cm, A, D = _scan_inputs(card, 48, 2, 131, di, 16, dtype, model_law=True)
+    got = scan_kernel.mamba_scan(x, dt, Bm, Cm, A, D)
+    want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+    atol, rtol = SCAN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
     x, dt, Bm, Cm, A, D = _scan_inputs(card, 44, 1, 16, 64, 16, torch.float32)
     with pytest.raises(ValueError, match="state size"):
@@ -430,3 +518,53 @@ def test_jamba_prefill_goes_through_the_kernels(card):
     x = torch.zeros((2, 3, cfg.d_model), device=card)
     with pytest.raises(ValueError, match="carried state"):
         Ma.mamba_forward(params.layers[0].mamba, cfg, x, cache[0], use_kernel=True)
+
+
+# ---------------------------------------------------------------------------
+# the device guard
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a launch on cuda:1 while cuda:0 is current")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fedsem_objective", "flash_attention", "rwkv6_scan", "mamba_scan"])
+def test_kernels_launch_on_their_inputs_card(second_card, name):
+    """Each wrapper makes its inputs' card current for the launch (and flash
+    for its TMA descriptors): with cuda:0 current, inputs on cuda:1 give the
+    plain version's answer there, and cuda:0 stays current."""
+    dev = second_card
+    torch.cuda.set_device(0)
+    if name == "fedsem_objective":
+        args, mask = grid_inputs(14, 16, 3, 10)
+        t = [torch.from_numpy(a).to(dev) for a in args]
+        kw = dict(xi=XI, eta=ETA, accuracy_ab=AB, dev_mask=torch.from_numpy(mask).to(dev))
+        kap = [torch.linspace(0.5, 2.0, 16, device=dev), 1.0, torch.full((16,), 1.3, device=dev)]
+        got = ops.objective_grid_batch(*t, *kap, **kw)
+        want = ref.objective_grid_batch(*t, *kap, **kw)
+        torch.cuda.synchronize(dev)
+        assert_scores(got.cpu().numpy(), want.cpu().numpy())
+    elif name == "flash_attention":
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(dev, 21, 1, 256, 4, 2, 64, dtype)
+            got = flash_kernel.flash_attention(q, k, v, causal=True)
+            want = _plain(q, k, v, causal=True)
+            atol, rtol = FLASH_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    elif name == "rwkv6_scan":
+        args = _wkv_models_types(dev, 39, 1, 4, 300, 64)
+        got = wkv_kernel.rwkv6_scan(*args, torch.float32)
+        want = wkv_ref.rwkv6_scan(*args, out_dtype=torch.float32)[0]
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        x, dt, Bm, Cm, A, D = _scan_inputs(dev, 49, 1, 300, 256, 16, torch.bfloat16, model_law=True)
+        got = scan_kernel.mamba_scan(x, dt, Bm, Cm, A, D)
+        want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+        atol, rtol = SCAN_TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert got.device == dev and torch.cuda.current_device() == 0

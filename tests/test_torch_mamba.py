@@ -183,6 +183,55 @@ def test_empty_sequence():
     assert y.shape == (2, 0, 32) and torch.equal(h, torch.zeros((2, 32, 8)))
 
 
+def _jamba_law(seed, S, di, N, dtype):
+    """x, dt, Bm, Cm, A, D as the initialised Jamba has them (dt =
+    softplus(-4.6 + 0.5 z), near 0.01; A = -(1..N)), x and B/C in ``dtype``
+    (B and C column views of one projection), dt float32."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, S, di)).astype(np.float32)).to(dtype)
+    dt = torch.from_numpy(np.log1p(np.exp(-4.6 + 0.5 * rng.standard_normal((1, S, di))))
+                          .astype(np.float32))
+    proj = torch.from_numpy(rng.standard_normal((1, S, 2 * N)).astype(np.float32)).to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(di, 1)
+    D = torch.from_numpy((1.0 + 0.5 * rng.standard_normal(di)).astype(np.float32))
+    return x, dt, proj[..., :N], proj[..., N:], A, D
+
+
+def _scan_with_kernels_exp(x, dt, Bm, Cm, A, D, ulps, seed):
+    """`ref.mamba_scan` with exp(dt A) taken as the CUDA kernel takes it:
+    2^(dt a2) with a2 = A log2(e) rounded to float32 and dt a2 rounded, the
+    power rounded correctly to float32 and then moved by a random whole
+    number of ulps in [-ulps, ulps] (what `ex2.approx` may err by)."""
+    rng = np.random.default_rng(seed)
+    a2 = A.float() * np.float32(1.4426950408889634)
+    h = torch.zeros((x.shape[0], x.shape[2], Bm.shape[-1]))
+    ys = []
+    for t in range(x.shape[1]):
+        x_t, dt_t, B_t, C_t = (v[:, t].float() for v in (x, dt, Bm, Cm))
+        da = torch.exp2((dt_t[..., None] * a2).double()).float()
+        da = (da.view(torch.int32) + torch.from_numpy(
+            rng.integers(-ulps, ulps + 1, da.shape, dtype=np.int32))).view(torch.float32)
+        h = da * h + (dt_t * x_t)[..., None] * B_t[:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C_t) + D.float() * x_t)
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_exponential_holds_the_gates(dtype):
+    """The CUDA kernel's exponential (2^(dt a2) on the exponential unit, a
+    few ulp from exp(dt A)) against the plain scan's, every other operation
+    as the plain version rounds it, at S 4096 under Jamba's law: y within
+    phase 10's gate, float32 at 1e-4 and the model's bf16 types at one ulp
+    (the state in float32 either way)."""
+    args = _jamba_law(50, 4096, 32, 16, getattr(torch, dtype))
+    want = ref.mamba_scan(*args)[0]
+    got = _scan_with_kernels_exp(*args, ulps=4, seed=51)
+    assert got.dtype == want.dtype
+    atol, rtol = SCAN_TOL[dtype]
+    want = want.double()
+    assert float(((got.double() - want).abs() / (atol + rtol * want.abs())).max()) < 1.0
+
+
 # ---------------------------------------------------------------------------
 # the block
 # ---------------------------------------------------------------------------

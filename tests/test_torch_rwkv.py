@@ -182,6 +182,102 @@ def test_empty_sequence():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+
+def _model_law(seed, S, hd, dtype=torch.float32):
+    """r, k, v (rounded to bf16, the model's types) and u of one head, with
+    w of the model's decay law exp(-exp(-6 + 0.5 z)) (near 0.9975), as
+    (1, 1, S, hd) tensors in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((1, 1, S, hd)).astype(np.float32))
+               .to(torch.bfloat16).to(dtype) for _ in range(3))
+    w = torch.from_numpy(np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal((1, 1, S, hd))))
+                         .astype(np.float32)).to(dtype)
+    u = torch.from_numpy(rng.standard_normal((1, hd)).astype(np.float32)).to(dtype)
+    return r, k, v, w, u
+
+
+def _gate_share(got, want, dtype="float32"):
+    """max |got - want| / (atol + rtol |want|) at the kernel gate's tolerance"""
+    atol, rtol = SCAN_TOL[dtype]
+    want = want.double()
+    return float(((got.double() - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (the float64 product of two float32
+    values is exact)"""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _recurrence64(r, k, v, w, u):
+    """The plain recurrence of one (b, h), every operation in float64."""
+    r, k, v, w = (x[0, 0].double() for x in (r, k, v, w))
+    uf = u[0].double()[:, None]
+    state = torch.zeros((r.shape[1], r.shape[1]), dtype=torch.float64)
+    ys = []
+    for t in range(r.shape[0]):
+        kv = k[t][:, None] * v[t][None, :]
+        ys.append(r[t] @ (state + uf * kv))
+        state = w[t][:, None] * state + kv
+    return torch.stack(ys)
+
+
+def _tree(x):
+    """the sum over the last dim (a power of 2) as the kernel's transposing
+    shuffle pass takes it: lanes l and l ^ (n / 2) first, then l ^ (n / 4), ..."""
+    while x.shape[-1] > 1:
+        x = x[..., : x.shape[-1] // 2] + x[..., x.shape[-1] // 2:]
+    return x[..., 0]
+
+
+def _kernel_y(r, k, v, w, u, parts=4):
+    """The CUDA kernel's y for one (b, h) of hd 64, in plain torch: the state
+    S <- (w S) + (k v) rounded as the plain version rounds it; y_j = sum_i
+    r_i S_ij (S before the step's update; each lane's 2 keys by an FMA, the
+    32 lanes by the transposing pass) + v_j c_t, with the bonus sum c_t =
+    sum_i r_i u_i k_i taken by ``parts`` threads of hd / parts keys each
+    (FMAs in key order) and a butterfly. Returns (y (S, hd), final state)."""
+    r, k, v, w, u = (x[0, 0].float() if x.ndim == 4 else x[0].float() for x in (r, k, v, w, u))
+    S, hd = r.shape
+    ru, kk = (r * u).reshape(S, parts, -1), k.reshape(S, parts, -1)
+    c = torch.zeros((S, parts))
+    for m in range(hd // parts):
+        c = _fma(ru[..., m], kk[..., m], c)
+    state = torch.zeros((hd, hd))
+    ysum = []
+    for t in range(S):
+        lane = _fma(r[t, 1::2, None], state[1::2], r[t, 0::2, None] * state[0::2])  # (hd/2, hd)
+        ysum.append(_tree(lane.T))
+        state = w[t][:, None] * state + k[t][:, None] * v[t][None, :]
+    return _fma(v, _tree(c)[:, None], torch.stack(ysum)), state
+
+
+def test_float32_gate_pins_the_wkv_states_rounding():
+    """The fact that pins the kernel's state to the plain version's rounding
+    (no chunked form, no reordered sums): at S 4096 under the model's decay
+    law, the plain float32 recurrence itself lies beyond the float32 gate
+    (1e-4 absolute and relative) from the same recurrence in float64."""
+    args = _model_law(40, 4096, 64)
+    y32 = ref.rwkv6_scan(*args)[0]
+    assert _gate_share(y32[0, 0], _recurrence64(*args)) > 1.0
+
+
+def test_kernels_factored_y_holds_the_gate():
+    """The kernel's y (the bonus term factored out of the entry loop, its
+    own sum order) against the plain version at S 4096 under the model's
+    decay law: within the float32 gate, with the state bit for bit the
+    plain version's."""
+    args = _model_law(41, 4096, 64)
+    want, want_state = ref.rwkv6_scan(*args)
+    got, state = _kernel_y(*args)
+    assert torch.equal(state, want_state[0, 0])
+    assert _gate_share(got, want[0, 0]) < 1.0
+
+
+# ---------------------------------------------------------------------------
 # the blocks
 # ---------------------------------------------------------------------------
 
