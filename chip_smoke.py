@@ -15,8 +15,10 @@ the CPU in place of the card):
    instantiation of either may spill;
 2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
-   selection, (48, 1, 10) for the per-iteration trace), at the exhaustive
-   sweep's (64, 8192, 8), and `objective_grid` at (G, N) = (1024, 10); with
+   selection, (48, 1, 10) for the per-iteration trace), at a large-G case
+   (64, 8192, 8), at the exhaustive sweep's shapes with the feasibility mask
+   ((1, 800000, 4), each of Table II's 1024 chunks; (64, 6912, 3), each of the
+   oracle gate's 2), and `objective_grid` at (G, N) = (1024, 10); with
    masked rows, per-row weights and the feasibility mask on and off. The
    +inf mask must agree exactly and finite scores to rtol 5e-7, atol 1e-5.
    Each is timed with CUDA events: on the device (launches captured in a
@@ -124,13 +126,42 @@ the CPU in place of the card):
    per attention layer (1) and give finite logits, with the yardsticks,
    logit gates and profile of phase 5;
 12. `ServeLoop` on the Jamba cut, as phase 6 (decode carries (conv window,
-   h) through the plain one-step recurrence and launches no kernel).
+   h) through the plain one-step recurrence and launches no kernel);
+13. the scenario families and the paper's baselines: 16 Table-I scenarios
+   (N = 10, K = 50) from seed 0 of each of the four families on the card
+   (`iid_rayleigh` reuses phase 3's solve), `solve_batch` under
+   ``AllocatorConfig(inner="pgd")``, and the four baselines of
+   `repro_torch.core.baselines` on the same batch, one call each. Every leaf
+   finite; Alg. A2's X and the equal, computation-only and random
+   baselines' X binary with every subcarrier owned once (the
+   communication-only baseline returns PGD's relaxed X: in [0, 1], each
+   subcarrier owned at most once); Alg. A2 feasible on every scenario and
+   no worse than every feasible baseline (+1e-3, like with like); the count
+   of infeasible baselines is printed, with each family's solve time and
+   `hetero_classes`' three device classes;
+14. the exhaustive oracle (`repro_torch.core.exhaustive`) through the
+   objective kernel: Table II on the card (`iid_rayleigh`, N 4, K 5, seed 0,
+   f 5 levels in [0.25, 2] GHz, p 4 levels in [4, 20] dBm, rho 5 levels in
+   [0.2, 1]: G = 800,000 candidates for each of the 1024 assignments), once
+   with the kernel and once with ``use_kernel=False`` on the same card
+   tensors. Both must return the same allocation (or, on a tie, values
+   within phase 2's tolerance); the kernel launches once per chunk (1024)
+   on the kernel run and never on the plain run; the value equals the
+   port's `report` objective of its allocation to rtol 1e-5, and the
+   allocation is feasible. Each run's wall time (ending in a synchronize)
+   and candidates per second are printed, and one more warm kernel sweep
+   runs under `torch.profiler` (the device's busy share, the kernel's
+   device time); then Alg. A2's objective (PGD) on the same instance and
+   Table II's claims (printed, not gated: the instance is the port's
+   draw). Then the oracle gate's sweep (N 3, K 4,
+   the gate's grids) for each family, kernel against plain, as above.
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
-and every other kernel never. Each path (3, 5 + 6, 8 + 9 and 11 + 12) is
-driven with the kernels' launch counts set to 0 just before it and read just
-after. With ``--profile``, one short solve
+and every other kernel never; the allocator paths (3, 13 and 14) launch the
+objective kernel and no other. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13 and
+14) is driven with the kernels' launch counts set to 0 just before it and
+read just after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -218,6 +249,14 @@ LM_PATHS = (("gemma2_2b", 8192, {}),                  # phases 5-6 (> the 4096 w
 EXIT_NO_CARD, EXIT_NO_PORT = 4, 5
 RTOL, ATOL = 5e-7, 1e-5
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
+#: the exhaustive sweep's launches of the objective kernel, (B, G, N) with
+#: the feasibility mask: Table II's full levels (1024 chunks of one
+#: assignment) and the per-family oracle gate (2 chunks of 64)
+SWEEP_SHAPES = ((1, 800000, 4), (64, 6912, 3))
+#: phase 13's scenarios per family (Table I: N 10, K 50)
+FAMILY_B = 16
+#: phase 14's Table II grid (benchmarks/table2_exhaustive.py, full levels)
+TABLE2_LEVELS = dict(f_levels=(0.25e9, 2e9, 5), p_levels_dbm=(4.0, 20.0, 4), rho_levels=(0.2, 1.0, 5))
 #: floating-point operations per (candidate, device) of eq. 13 as the kernel
 #: evaluates it (divisions, products, sums, compares; exp/log counted once)
 OPS_PER_ELEMENT = 24
@@ -370,9 +409,9 @@ def phase_kernel(device):
     gen = torch.Generator(device=device).manual_seed(1234)
     cases = []
     ab = tuple(torch.tensor(v, device=device) for v in AB)
-    for B, G, N in ((16, 3, 10), (48, 1, 10), (64, 8192, 8)):
+    for B, G, N in ((16, 3, 10), (48, 1, 10), (64, 8192, 8)) + SWEEP_SHAPES:
         args, mask, kap = grid_inputs(gen, B, G, N, device)
-        for feas in (True, False):
+        for feas in (True,) if (B, G, N) in SWEEP_SHAPES else (True, False):
             kw = dict(xi=XI, eta=ETA, check_feasible=feas)
             run_k = lambda: kernel.objective_batch(*args, mask, *kap, *AB, **kw)
             run_p = lambda: ref.objective_grid_batch(*args, *kap, accuracy_ab=ab, dev_mask=mask, **kw)
@@ -406,6 +445,11 @@ def phase_kernel(device):
     return cases
 
 
+def check_binary_x(params, X, what: str) -> None:
+    check(bool(((X == 0) | (X == 1)).all()), f"{what}: X is not binary")
+    check(bool((X.sum(dim=-2) == params.sc_mask).all()), f"{what}: a subcarrier not owned exactly once")
+
+
 def check_allocation(params, res, what: str) -> None:
     import torch
 
@@ -415,10 +459,8 @@ def check_allocation(params, res, what: str) -> None:
     for name in ("f", "P", "X", "rho"):
         check(bool(torch.isfinite(getattr(a, name)).all()), f"{what}: non-finite {name}")
     check(bool(torch.isfinite(res.trace).all()), f"{what}: non-finite trace")
-    X = a.X
-    check(bool(((X == 0) | (X == 1)).all()), f"{what}: X is not binary")
-    check(bool((X.sum(dim=-2) == params.sc_mask).all()), f"{what}: a subcarrier not owned exactly once")
-    check(bool((X.sum(dim=-1) >= 1).all()), f"{what}: a device owns no subcarrier")
+    check_binary_x(params, a.X, what)
+    check(bool((a.X.sum(dim=-1) >= 1).all()), f"{what}: a device owns no subcarrier")
     check(bool(feasible(params, a).all()), f"{what}: infeasible allocation")
 
 
@@ -430,9 +472,6 @@ def phase_slice(device):
     from repro_torch.core.pgd import PGDConfig
     from repro_torch.core.types import tree_map
     from repro_torch.kernels.fedsem_objective import kernel
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
-    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.scenarios import get_family
 
     fam = get_family("iid_rayleigh")
@@ -442,8 +481,7 @@ def phase_slice(device):
     configs = {"pgd": AllocatorConfig(inner="pgd"), "sca": AllocatorConfig()}
 
     solves = {}
-    # the allocator path starts here
-    kernel.launches = flash_kernel.launches = wkv_kernel.launches = scan_kernel.launches = 0
+    zero_launches()                          # the allocator path starts here
     for name, cfg in configs.items():
         before = kernel.launches
         torch.cuda.synchronize()
@@ -457,9 +495,7 @@ def phase_slice(device):
               f"solve_batch[{name}]: {n} kernel launches < outer_iters + 1 = {cfg.outer_iters + 1}")
         solves[name] = dict(res=res, wall_s=wall, launches=n)
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
-    main_path_launches = kernel.launches     # ... and ends here
-    check(flash_kernel.launches == wkv_kernel.launches == scan_kernel.launches == 0,
-          "the allocator path launched the flash, the WKV or the selective-scan kernel")
+    main_path_launches = only_objective_launched("the allocator path")    # ... and ends here
 
     for name, cfg in configs.items():
         torch.cuda.synchronize()
@@ -484,7 +520,7 @@ def phase_slice(device):
     check(torch.equal(gpu.alloc.X.cpu(), cpu.alloc.X), "card and CPU disagree on a small input's X")
     print("small input (B=2, N=4, K=12): card and CPU give the same hardened X", flush=True)
     return {k: {kk: vv for kk, vv in v.items() if kk != "res"} for k, v in solves.items()}, \
-        main_path_launches
+        main_path_launches, (params, solves["pgd"]["res"])
 
 
 def phase_profile(device):
@@ -1079,6 +1115,240 @@ def phase_lm(device, arch, S, cut):
     return report, launches
 
 
+def zero_launches():
+    """Set every kernel's launch count to 0 (the start of a path)."""
+    from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+
+    kernel.launches = flash_kernel.launches = wkv_kernel.launches = scan_kernel.launches = 0
+
+
+def only_objective_launched(what: str) -> int:
+    """The end of an allocator path: its objective-kernel launches; no LM
+    kernel may have launched."""
+    from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+
+    check(flash_kernel.launches == wkv_kernel.launches == scan_kernel.launches == 0,
+          f"{what} launched the flash, the WKV or the selective-scan kernel")
+    return kernel.launches
+
+
+def phase_families(device, iid_pgd):
+    """Phase 13: each scenario family's Table-I batch through Alg. A2 (PGD)
+    and the four baselines. ``iid_pgd`` is phase 3's (params, result) on the
+    same ``iid_rayleigh`` draw."""
+    import torch
+
+    from repro_torch.core import AllocatorConfig, Weights, solve_batch
+    from repro_torch.core import baselines as B
+    from repro_torch.core.system import feasible, report
+    from repro_torch.scenarios import build_classes, get_family, list_families
+
+    cfg = AllocatorConfig(inner="pgd")
+    w = Weights.ones(device)
+    out = {}
+    zero_launches()                                   # the families' path starts here
+    for name in list_families():
+        params = get_family(name).sample_batch(0, FAMILY_B, N=10, K=50, device=device)
+        check(params.g.is_cuda and params.g.shape == (FAMILY_B, 10, 50), f"{name}: not drawn on the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "iid_rayleigh":
+            check(torch.equal(params.g, iid_pgd[0].g), "iid_rayleigh: not phase 3's draw")
+            res, wall = iid_pgd[1], None
+        else:
+            res = solve_batch(params, w, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check_allocation(params, res, f"families[{name}]")
+        a2 = report(params, w, res.alloc)["objective"]
+        bases = {
+            "equal": B.equal_allocation(params),
+            "comm_only": B.comm_opt_only(params, w, 1),
+            "comp_only": B.comp_opt_only(params, w),
+            "random": B.random_allocation(params, 2),
+        }
+        rec = dict(solve_s=wall, a2_mean=float(a2.mean()), baselines={})
+        for bname, alloc in bases.items():
+            what = f"families[{name}] {bname}"
+            for leaf in ("f", "P", "X", "rho"):
+                check(bool(torch.isfinite(getattr(alloc, leaf)).all()), f"{what}: non-finite {leaf}")
+            if bname == "comm_only":           # PGD's relaxed X, as the reference's
+                X = alloc.X
+                check(bool(((X >= 0) & (X <= 1)).all() and (X.sum(dim=-2) <= 1 + 1e-6).all()),
+                      f"{what}: X outside [0, 1] or a subcarrier owned more than once")
+            else:
+                check_binary_x(params, alloc.X, what)
+            obj = report(params, w, alloc)["objective"]
+            ok = feasible(params, alloc)
+            worse = (a2 > obj + 1e-3) & ok
+            check(not bool(worse.any()), f"{what}: Alg. A2 worse than a feasible baseline on "
+                  f"{int(worse.sum())} scenarios ({a2[worse].tolist()} > {obj[worse].tolist()})")
+            rec["baselines"][bname] = dict(infeasible=int((~ok).sum()), mean=float(obj.mean()))
+        out[name] = rec
+        infeasible = {b: r["infeasible"] for b, r in rec["baselines"].items()}
+        print(f"families[{name}] B={FAMILY_B} N=10 K=50: solve_batch[pgd] "
+              + (f"{wall:.3f} s" if wall is not None else "phase 3's")
+              + f", Alg. A2 mean objective {rec['a2_mean']:.6g}, feasible; baselines' mean "
+              + ", ".join(f"{b} {r['mean']:.6g}" for b, r in rec["baselines"].items())
+              + f"; infeasible baselines (not compared): {infeasible}", flush=True)
+    n = only_objective_launched("the families' path")    # ... and ends here
+    check(n > 0, "the families' path never launched the objective kernel")
+    classes = build_classes()
+    print("hetero_classes device classes: " + "; ".join(
+        f"{c.arch}: c {c.c_cycles:.6g}, f_max {c.f_max_hz:.3g} Hz, p_max {c.p_max_dbm} dBm"
+        for c in classes), flush=True)
+    return out, n, [c._asdict() for c in classes]
+
+
+def sweep_pair(params, w, levels, what: str):
+    """One exhaustive sweep with the kernel and one with its plain version
+    on the same card tensors: the same answer (or, on a tie, values within
+    phase 2's tolerance), one kernel launch per chunk of assignments and
+    none plain. Returns (kernel result, plain result, record)."""
+    import torch
+
+    from repro_torch.core.exhaustive import default_chunk, solve_exhaustive
+    from repro_torch.core.system import feasible, report
+    from repro_torch.kernels.fedsem_objective import kernel
+
+    N, K = params.N, params.K
+    G = (len(levels["f_levels"]) * len(levels["p_levels_dbm"])) ** N * len(levels["rho_levels"])
+    chunk = default_chunk(G, N)
+    want_launches = -(-N**K // chunk)
+    runs, rec = {}, {"launch_shape": [chunk, G, N]}
+    for route, use_kernel in (("kernel", True), ("plain", False)):
+        before = kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex = solve_exhaustive(params, w, **levels, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kernel.launches - before
+        check(n == (want_launches if use_kernel else 0),
+              f"{what} {route}: {n} kernel launches, want {want_launches if use_kernel else 0}")
+        runs[route] = ex
+        rec[route] = dict(wall_s=wall, launches=n, candidates_per_s=ex.n_evaluated / wall,
+                          value=float(ex.value))
+    k, p = runs["kernel"], runs["plain"]
+    same = all(torch.equal(getattr(k.alloc, leaf), getattr(p.alloc, leaf)) for leaf in ("f", "P", "X", "rho"))
+    vk, vp = float(k.value), float(p.value)
+    check(abs(vk - vp) <= ATOL + RTOL * abs(vp), f"{what}: kernel value {vk} vs plain {vp}")
+    check(k.n_evaluated == p.n_evaluated, f"{what}: candidate counts differ")
+    for route, ex in runs.items():
+        obj = float(report(params, w, ex.alloc)["objective"])
+        check(abs(float(ex.value) - obj) <= 1e-5 * abs(obj), f"{what} {route}: value {float(ex.value)} "
+              f"!= report objective {obj}")
+        check(bool(feasible(params, ex.alloc)), f"{what} {route}: infeasible allocation")
+    rec.update(same_allocation=same, n_evaluated=k.n_evaluated)
+    if not same:
+        print(f"{what}: tie: kernel and plain sweeps pick different candidates, values {vk} and {vp}",
+              flush=True)
+    return k, p, rec
+
+
+def phase_oracle(device):
+    """Phase 14: the exhaustive oracle through the objective kernel: Table
+    II's full grid, then the oracle gate's sweep per family."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import AllocatorConfig, Weights, solve
+    from repro_torch.core import baselines as B
+    from repro_torch.core.system import report
+    from repro_torch.scenarios import get_family, list_families
+
+    w = Weights.ones(device)
+    levels = {k: np.linspace(*v) for k, v in TABLE2_LEVELS.items()}
+    params = get_family("iid_rayleigh").sample(0, N=4, K=5, device=device)
+    zero_launches()                                   # the exhaustive path starts here
+    ex, _, table2 = sweep_pair(params, w, levels, "Table II sweep")
+    gate = {}
+    for name in list_families():
+        p = get_family(name).sample(2, N=3, K=4, device=device)
+        p_hi_dbm = 10.0 * np.log10(float(p.p_max.min())) + 30.0
+        gate_levels = dict(f_levels=np.linspace(0.25e9, float(p.f_max.min()), 4),
+                           p_levels_dbm=np.linspace(4.0, p_hi_dbm, 3), rho_levels=np.linspace(0.2, 1.0, 4))
+        _, _, gate[name] = sweep_pair(p, w, gate_levels, f"oracle gate sweep [{name}]")
+    launches = only_objective_launched("the exhaustive path")    # ... and ends here
+    check(tuple(table2["launch_shape"]) == SWEEP_SHAPES[0] and table2["kernel"]["launches"] == 1024
+          and all(tuple(g["launch_shape"]) == SWEEP_SHAPES[1] and g["kernel"]["launches"] == 2
+                  for g in gate.values()),
+          f"the sweeps' launches are not phase 2's shapes: {table2['launch_shape']}, "
+          f"{[g['launch_shape'] for g in gate.values()]}")
+    for route in ("kernel", "plain"):
+        r = table2[route]
+        print(f"Table II sweep (N 4, K 5, {table2['n_evaluated']} candidates) {route}: "
+              f"{r['wall_s']:.4f} s wall, {r['candidates_per_s']:.6g} candidates/s, "
+              f"{r['launches']} kernel launches at {tuple(table2['launch_shape'])}, "
+              f"value {r['value']:.8g}", flush=True)
+    print(f"Table II sweep: kernel and plain give the same allocation: {table2['same_allocation']}; "
+          f"the oracle gate's sweeps: " + ", ".join(
+              f"{n} {g['kernel']['wall_s']:.4f} s kernel / {g['plain']['wall_s']:.4f} s plain, "
+              f"same {g['same_allocation']}" for n, g in gate.items()), flush=True)
+
+    busy = profile_sweep(params, w, levels)
+
+    # Table II's comparison, on the port's draw: Alg. A2 (PGD) and the equal baseline
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a2 = solve(params, w, AllocatorConfig(inner="pgd"))
+    torch.cuda.synchronize()
+    a2_s = time.perf_counter() - t0
+    a2_obj = float(report(params, w, a2.alloc)["objective"])
+    eq_obj = float(report(params, w, B.equal_allocation(params))["objective"])
+    oracle = float(ex.value)
+    projected_years = (4.0**10) * (3.0**10) * 5 * (10.0**50) / table2["kernel"]["candidates_per_s"] / 3.15e7
+    claims = {"exhaustive_not_much_better": oracle >= a2_obj - 0.35 * abs(a2_obj),
+              "proposed_beats_equal": a2_obj < eq_obj,
+              "exhaustive_intractable_at_scale": projected_years > 1e6}
+    print(f"Table II instance: Alg. A2 (pgd) objective {a2_obj:.8g} in {a2_s:.3f} s, oracle {oracle:.8g}, "
+          f"equal allocation {eq_obj:.8g}; claims (printed, not gated): {claims}", flush=True)
+    return dict(table2=table2, gate=gate, profile=busy, a2_objective=a2_obj, a2_s=a2_s,
+                equal_objective=eq_obj, claims=claims), launches
+
+
+def profile_sweep(params, w, levels) -> dict:
+    """Where one Table II kernel sweep's time goes: the device's busy time
+    (its own events in a `torch.profiler` trace) and the objective kernel's
+    share of it, against the unprofiled wall time of a second sweep."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.exhaustive import solve_exhaustive
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve_exhaustive(params, w, **levels, use_kernel=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve_exhaustive(params, w, **levels, use_kernel=True)
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    kern = [e for e in on_dev if "fedsem_objective_kernel" in e.key]
+    kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    kernel_n = sum(e.count for e in kern)
+    check(busy_ms > 0 and kernel_n > 0, "the sweep's profile saw no device time or no kernel")
+    top = sorted(on_dev, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    out = dict(wall_s=wall, device_busy_ms=busy_ms, busy_share=busy_ms / 1e3 / wall,
+               kernel_ms=kernel_ms, kernel_launches=kernel_n,
+               top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+    print(f"Table II kernel sweep, warm: {wall:.4f} s wall; device busy {busy_ms:.3f} ms "
+          f"({100 * out['busy_share']:.1f}% of wall), the kernel {kernel_ms:.3f} ms in "
+          f"{kernel_n} launches ({1e3 * kernel_ms / max(kernel_n, 1):.3f} us each)", flush=True)
+    for key, ms, count in out["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<7d} {key[:90]}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=pathlib.Path, help="also write the full report as JSON here")
@@ -1152,7 +1422,7 @@ def main() -> int:
               f"max abs err {c['max_abs_err']:.3g}", flush=True)
 
     # phase 3: the allocator slice
-    solves, launches = phase_slice(device)
+    solves, launches, iid_pgd = phase_slice(device)
     profiled = phase_profile(device) if args.profile else None
 
     # phase 4: the flash kernel vs its plain version
@@ -1178,6 +1448,14 @@ def main() -> int:
              "jamba_1_5_large_398b": jamba_launches}
     by_path = lambda name: {arch: n[name] for arch, n in paths.items() if n[name]}
 
+    # phase 13: the scenario families and the baselines
+    families, families_launches, classes = phase_families(device, iid_pgd)
+
+    # phase 14: the exhaustive oracle through the objective kernel
+    oracle, oracle_launches = phase_oracle(device)
+    objective_by_path = {"solve_batch": launches, "families": families_launches,
+                         "exhaustive": oracle_launches}
+
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
     record = {"kernels": [{
@@ -1185,7 +1463,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/fedsem_objective/csrc/objective.cu",
         "replaces": "src/repro/kernels/fedsem_objective/kernel.py:171",
-        "launches": launches,
+        "launches": sum(objective_by_path.values()),
+        "launches_by_path": objective_by_path,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": trace_case["ms"],
         "plain_ms": trace_case["plain_ms"],
@@ -1244,7 +1523,8 @@ def main() -> int:
         args.out.write_text(json.dumps(
             dict(build_s=build_s, flash_sass=flash_sass, cases=cases, solves=solves,
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
-                 scan_cases=scan_cases, jamba=jamba, record=record, card=smi), indent=1))
+                 scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
+                 oracle=oracle, record=record, card=smi), indent=1))
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Architecture registry: `--arch <id>` resolves here.
 
-Counterpart of `repro.configs.registry`. The port has the configurations
-whose blocks it runs (``jamba_1_5_large_398b`` is the published config, with
-its 16 experts: `models.model.init_params` raises on it, naming ROADMAP.md
-§1 item 12, and runs its dense cut, ``CONFIG.scaled(n_experts=0,
-top_k=0)``); every other architecture of the reference raises
-`NotImplementedError` naming the ROADMAP.md §1 item that ports it.
+Counterpart of `repro.configs.registry`. `get_config` returns every LM
+configuration of the reference, as plain data (``hetero_classes`` sizes its
+device classes from all ten). Which of them the port can build is decided at
+model construction: `models.model.init_params` raises `NotImplementedError`
+naming the ROADMAP.md §1 item that ports what a config needs (MoE and MLA
+layers, the frontends, and the configs listed in ``NOT_PORTED``).
+``jamba_1_5_large_398b`` is the published config, with its 16 experts; the
+port runs its dense cut, ``CONFIG.scaled(n_experts=0, top_k=0)``.
+``fedsem_autoencoder`` is not an LM config and raises here.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ ARCHS = (
     "pixtral_12b",
     "fedsem_autoencoder",   # the paper's own model (not an LM config)
 )
-#: architectures the port runs
-PORTED = ("gemma2_2b", "qwen2_5_3b", "rwkv6_1_6b", "jamba_1_5_large_398b")
-#: where each other architecture is ported (ROADMAP.md §1)
+#: configs the port does not run yet, and the ROADMAP.md §1 item that ports
+#: each (consulted by `models.model.init_params`; ``fedsem_autoencoder`` by
+#: `get_config`)
 NOT_PORTED = {
     "arctic_480b": "item 12 (MoE and MLA)",
     "deepseek_v3_671b": "item 12 (MoE and MLA)",
@@ -43,14 +46,22 @@ NOT_PORTED = {
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
+def canonical(name: str) -> str:
+    """The registry key of an arch id or a config's ``name`` (``gemma2-9b``)."""
+    return _ALIASES.get(name, name).replace("-", "_")
+
+
 def get_config(name: str) -> ModelConfig:
-    name = _ALIASES.get(name, name).replace("-", "_")
-    if name in NOT_PORTED:
+    name = canonical(name)
+    if name == "fedsem_autoencoder":
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md §1, {NOT_PORTED[name]}"
         )
-    if name not in PORTED:
+    if name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}; known: {', '.join(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 
+
+def list_archs():
+    return [a for a in ARCHS if a != "fedsem_autoencoder"]

@@ -15,9 +15,13 @@
 // Bound on an H100: memory. Every candidate is read once (f, p, r: N floats
 // each, rho: one float) and written once (one float), for a handful of flops
 // per byte; the limit rows t_sc_max and f_max are read only with
-// check_feasible. At the exhaustive-sweep shape (B=64, G=8192, N=8) that is
-// about 54.5 MB, about 16 us at 3.35 TB/s. At the solver's shapes (B*3 rows, G = 1
-// or 3, N = 10) it moves 10-17 KB, and launch latency bounds it.
+// check_feasible. The exhaustive sweep (core/exhaustive.py) launches it with
+// the feasibility mask at (B=1, G=800000, N=4), once for each of Table II's
+// 1024 assignments: about 44.8 MB, about 13.4 us at 3.35 TB/s; and at
+// (B=64, G=6912, N=3) for the oracle gate, about 19.5 MB. A large-G case
+// (B=64, G=8192, N=8) moves about 54.5 MB, about 16 us. At the solver's
+// shapes (B*3 rows, G = 1 or 3, N = 10) it moves 10-17 KB, and launch latency
+// bounds it.
 //
 // Design: one thread per (b, g) candidate, grid (ceil(G / 256), B). A block
 // stages its scenario's per-device rows (c*d, D, C, mask, and t_sc_max and

@@ -10,8 +10,13 @@ back.
 * `objective_grid` — one scenario, python-float weights, feasibility on.
 * `objective_grid_batch` — a leading scenario axis B with runtime weights
   and accuracy coefficients: the entry `core.scoring` uses.
+* `bound_objective_grid_batch` — the same, bound to its argument tensors
+  once, for a caller that rewrites an input in place and scores again (the
+  exhaustive sweep's rate tile): the kernel's arguments are checked once.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.device import wants_kernel
 
@@ -75,3 +80,42 @@ def objective_grid_batch(
         kappa1, kappa2, kappa3, a_acc, b_acc,
         xi=float(xi), eta=float(eta), check_feasible=check_feasible,
     )
+
+
+def bound_objective_grid_batch(
+    f, p, r, rho,
+    c, d, D, C, t_sc_max, f_max,
+    kappa1, kappa2, kappa3,
+    *,
+    xi: float, eta: float,
+    accuracy_ab=(0.6356, 0.4025),
+    dev_mask=None,
+    check_feasible: bool = True,
+    use_kernel: str | bool = "auto",
+):
+    """`objective_grid_batch` on these tensors as a zero-argument callable.
+
+    Each call scores the tensors' current contents: the caller may rewrite
+    them in place between calls, never replace them. The kernel route
+    checks and lays out its arguments here, once (`kernel.prepare`), and
+    each call is one launch; its (B, G) output buffer is reused by the next
+    call. The inputs must already be what the kernel takes (contiguous
+    float32 of the stated shapes), so that no argument is copied.
+    """
+    kw = dict(xi=xi, eta=eta, dev_mask=dev_mask, check_feasible=check_feasible)
+    args = (f, p, r, rho, c, d, D, C, t_sc_max, f_max, kappa1, kappa2, kappa3)
+    if not wants_kernel(use_kernel, f):
+        return lambda: ref.objective_grid_batch(*args, accuracy_ab=accuracy_ab, **kw)
+    a_acc, b_acc = accuracy_ab
+    prep = kernel.prepare(
+        f, p, r, rho, c, d, D, C, t_sc_max, f_max, dev_mask,
+        kappa1, kappa2, kappa3, a_acc, b_acc,
+        xi=float(xi), eta=float(eta), check_feasible=check_feasible,
+    )
+    for given, laid_out in zip((f, p, r, rho), prep.ins):
+        if laid_out.data_ptr() != torch.as_tensor(given).data_ptr():
+            raise ValueError(
+                "bound_objective_grid_batch: f, p, r and rho must be contiguous "
+                "float32 tensors on one card (a copy would not see rewrites)"
+            )
+    return lambda: kernel.launch(prep)

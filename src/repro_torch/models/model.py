@@ -16,15 +16,17 @@ Entry points:
   * prefill(params, cfg, batch)               -> logits
   * decode_step(params, cfg, token, pos, cache) -> (logits, cache)
 
-MoE and MLA layers, frontends and meshes are not ported yet and raise
-`NotImplementedError` (ROADMAP.md §1): the published Jamba config, with its
-experts, raises; its dense cut (``n_experts=0``) runs.
+MoE and MLA layers, frontends, meshes and the configs the registry lists
+in ``NOT_PORTED`` are not ported yet and raise `NotImplementedError`
+(ROADMAP.md §1) before anything is allocated: the published Jamba config,
+with its experts, raises; its dense cut (``n_experts=0``) runs.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..configs.registry import NOT_PORTED, canonical
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
@@ -82,6 +84,9 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: MoE/MLA layers are not ported yet: ROADMAP.md §1, item 12")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: ROADMAP.md §1, item 11")
+    arch = canonical(cfg.name)
+    if arch in NOT_PORTED:
+        raise NotImplementedError(f"{cfg.name} is not ported yet: ROADMAP.md §1, {NOT_PORTED[arch]}")
     for kind in cfg.block_pattern:
         if kind not in ("attn", "attn_local", "mamba", "rwkv"):
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")

@@ -10,6 +10,12 @@ cannot be reproduced in torch.
     fam = get_family("iid_rayleigh")
     params = fam.sample(0, N=10, K=50)                 # one SystemParams, on cuda
     batch = fam.sample_batch(0, 16, N=10, K=50)        # stacked (16, N, K)
+
+``sample_batch`` draws one leading batch shape from one generator: its rows
+are i.i.d. draws of the family's law, but not the draws ``sample`` would make
+one by one (the reference's "batch == stacked singles" holds there by
+`vmap` over split keys). ``stream``, the serving layer's request stream,
+comes with the serving slice and raises until then.
 """
 from __future__ import annotations
 
@@ -17,6 +23,11 @@ import torch
 
 from ..core.types import SystemParams, dbm_to_watt
 from ..device import resolve_device
+
+#: default mixed-size serving stream (the reference's ``(N, K)`` sizes)
+DEFAULT_STREAM_SIZES = ((3, 8), (4, 12), (6, 16))
+#: default per-subcarrier bandwidth of a stream: the Table-I B/K
+DEFAULT_STREAM_BBAR = 20e6 / 50
 
 
 def table1_population(
@@ -44,6 +55,33 @@ def table1_population(
         f_max=f_max_hz * ones,
         t_sc_max=t_sc_max * ones,
     )
+
+
+def uniform(gen: torch.Generator, shape, lo: float, hi: float, device) -> torch.Tensor:
+    """float32 draws uniform in [lo, hi)."""
+    u = torch.rand(tuple(shape), generator=gen, device=device, dtype=torch.float32)
+    return lo + (hi - lo) * u
+
+
+def large_scale_db(gen: torch.Generator, shape, radius_m: float, shadowing_db: float,
+                   device) -> torch.Tensor:
+    """The Section-V path loss plus shadowing in dB, of devices uniform in a
+    disc: 128.1 + 37.6 log10(dist_km) with ``shadowing_db`` log-normal
+    shadowing (the reference's ``iid_rayleigh``, ``gauss_markov`` and
+    ``hetero_classes`` law)."""
+    # uniform in a disc => r ~ sqrt(U) * radius
+    u = uniform(gen, shape, 1e-3, 1.0, device)
+    dist_km = torch.sqrt(u) * radius_m / 1000.0
+    pl_db = 128.1 + 37.6 * torch.log10(dist_km)
+    return pl_db + shadowing_db * torch.randn(
+        tuple(shape), generator=gen, device=device, dtype=torch.float32
+    )
+
+
+def rayleigh_power(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Unit-mean exponential (Rayleigh power) fading, float32."""
+    ray = torch.empty(tuple(shape), device=device, dtype=torch.float32)
+    return ray.exponential_(generator=gen)
 
 
 def generator(seed, device) -> torch.Generator:
@@ -80,6 +118,13 @@ class ScenarioFamily:
             raise ValueError(f"batch must be >= 1, got {batch}")
         dev = resolve_device(device)
         return self.draw(generator(seed, dev), (batch,), device=dev, **kwargs)
+
+    def stream(self, seed, n_requests: int, **kwargs):
+        """The serving layer's mixed-size request stream: not ported yet."""
+        raise NotImplementedError(
+            f"{self.name}.stream (the serving request stream) is not ported yet: "
+            "ROADMAP.md §1, item 8 (serving)"
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from ..core.types import SystemParams
-from .base import ScenarioFamily, register, table1_population
+from .base import (
+    ScenarioFamily, large_scale_db, rayleigh_power, register, table1_population, uniform,
+)
 
 
 class IidRayleigh(ScenarioFamily):
@@ -42,23 +44,11 @@ class IidRayleigh(ScenarioFamily):
     ) -> SystemParams:
         """Draw scenarios of shape ``lead`` with the paper's Table-I defaults."""
         dev_shape = tuple(lead) + (N,)
-
-        def uniform(shape, lo, hi):
-            u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
-            return lo + (hi - lo) * u
-
-        # uniform in a disc => r ~ sqrt(U) * radius
-        u = uniform(dev_shape, 1e-3, 1.0)
-        dist_km = torch.sqrt(u) * radius_m / 1000.0
-        pl_db = 128.1 + 37.6 * torch.log10(dist_km)
-        shadow = shadowing_db * torch.randn(
-            dev_shape, generator=gen, device=device, dtype=torch.float32
-        )
+        pl_shadow_db = large_scale_db(gen, dev_shape, radius_m, shadowing_db, device)
         # small-scale Rayleigh fading per subcarrier (block fading in slot t)
-        ray = torch.empty(dev_shape + (K,), device=device, dtype=torch.float32)
-        ray.exponential_(generator=gen)
-        gain_lin = 10.0 ** (-(pl_db + shadow)[..., None] / 10.0) * ray
-        c = uniform(dev_shape, c_lo, c_hi)
+        ray = rayleigh_power(gen, dev_shape + (K,), device)
+        gain_lin = 10.0 ** (-pl_shadow_db[..., None] / 10.0) * ray
+        c = uniform(gen, dev_shape, c_lo, c_hi, device)
 
         return SystemParams(
             g=gain_lin,

@@ -568,3 +568,45 @@ def test_kernels_launch_on_their_inputs_card(second_card, name):
         atol, rtol = SCAN_TOL[torch.bfloat16]
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     assert got.device == dev and torch.cuda.current_device() == 0
+
+
+# ---------------------------------------------------------------------------
+# the exhaustive oracle's sweep through the objective kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,padded", [("gauss_markov", False), ("hetero_classes", False),
+                                         ("iid_rayleigh", False), ("ris_geometry", False),
+                                         ("iid_rayleigh", True)])
+def test_exhaustive_sweep_kernel_matches_plain_version(card, name, padded):
+    """The oracle gate's sweep (N 3, K 4; padded into (4, 5) on smaller
+    grids) with the kernel, one launch per chunk, against the same sweep
+    through the plain version on the card: the same allocation, or on a
+    tie values within the kernel's tolerance."""
+    import numpy as np
+
+    from repro_torch.core import Weights, pad_params, unpad_alloc
+    from repro_torch.core.exhaustive import default_chunk, solve_exhaustive
+    from repro_torch.core.system import feasible
+    from repro_torch.scenarios import get_family
+
+    exact = get_family(name).sample(2, N=3, K=4, device=card)
+    n = 3 if padded else 4
+    p_hi_dbm = 10.0 * np.log10(float(exact.p_max.min())) + 30.0
+    levels = dict(f_levels=np.linspace(0.25e9, float(exact.f_max.min()), n),
+                  p_levels_dbm=np.linspace(4.0, p_hi_dbm, n - 1), rho_levels=np.linspace(0.2, 1.0, n))
+    p = pad_params(exact, 4, 5) if padded else exact
+    w = Weights.ones(card)
+    before = kernel.launches
+    got = solve_exhaustive(p, w, **levels)
+    G = (n * (n - 1)) ** p.N * n
+    assert kernel.launches - before == -(-p.N ** p.K // default_chunk(G, p.N))
+    want = solve_exhaustive(p, w, **levels, use_kernel=False)
+    assert kernel.launches - before == -(-p.N ** p.K // default_chunk(G, p.N))
+    assert got.n_evaluated == want.n_evaluated == p.N ** p.K * G
+    # a different candidate is a tie: its value within the kernel's tolerance
+    vk, vp = float(got.value), float(want.value)
+    assert abs(vk - vp) <= 1e-5 + 5e-7 * abs(vp)
+    # a real subcarrier a padded device owns is one left unassigned
+    assert bool(feasible(exact, unpad_alloc(got.alloc, 3, 4)))

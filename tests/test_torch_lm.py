@@ -224,8 +224,31 @@ def test_init_params_follows_the_reference_law():
 
 @pytest.mark.parametrize("arch", sorted(registry.NOT_PORTED))
 def test_unported_archs_raise_naming_the_roadmap_item(arch):
+    """An LM config the port does not run raises from `init_params`, before
+    anything is allocated (its config is plain data `get_config` returns);
+    the autoencoder, not an LM config, raises from `get_config`."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item \d+"):
-        registry.get_config(arch)
+        if arch == "fedsem_autoencoder":
+            registry.get_config(arch)
+        else:
+            M.init_params(registry.get_config(arch), torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("arch", registry.list_archs())
+def test_every_config_counts_the_references_parameters(arch):
+    """All ten LM configs are the reference's: the same parameter counts,
+    total and active (`hetero_classes` sorts its device classes by them)."""
+    cfg, jcfg = registry.get_config(arch), jget_config(arch)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    assert {f: getattr(cfg, f) for f in cfg.__dataclass_fields__} == \
+        {f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__}
+
+
+def test_list_archs_is_the_references():
+    from repro.configs.registry import list_archs as jlist_archs
+
+    assert registry.list_archs() == jlist_archs()
 
 
 def test_unported_paths_raise():
