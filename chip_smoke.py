@@ -154,14 +154,40 @@ the CPU in place of the card):
    device time); then Alg. A2's objective (PGD) on the same instance and
    Table II's claims (printed, not gated: the instance is the port's
    draw). Then the oracle gate's sweep (N 3, K 4,
-   the gate's grids) for each family, kernel against plain, as above.
+   the gate's grids) for each family, kernel against plain, as above;
+15. serving (`repro_torch.serve`) on the card at full width: an
+   `iid_rayleigh` stream of 12 requests of sizes (10, 50) (Table I; bucket
+   (16, 64)) and (6, 16) (bucket (8, 16)) at the Table-I bbar, Poisson
+   arrivals at 20 req/s, `AllocService` with the serving config
+   ``AllocatorConfig(inner="pgd")`` at default iteration counts,
+   `DEFAULT_BUCKETS`, max_batch 8, max_wait 50 ms. Passes: (a) the
+   `RealClockDriver` through `pace_stream`, then a drain; (b) the same
+   stream and arrivals through `run_load` on the virtual clock; (c) the
+   same stream again, all at once, through a ``warmstart=WarmStartConfig()``
+   service whose cache holds (a)'s solutions, so every request hits; then
+   the (6, 16) requests at cut depth (1 outer iteration, 100 PGD steps: a
+   full-depth flush holds too many events for the profiler) in one kernel
+   flush, the same under `torch.profiler`, and one flush of the plain
+   scoring path (``use_kernel_objective=False``). Gates: every request
+   answered once, binary and feasible at its exact shape,
+   `Completion.objective` equal to `system.objective` there to rtol 1e-5;
+   (a) and (b) give the same req_id -> X; in (c) every request hits and
+   no objective exceeds (b)'s + 1e-5 max(1, |cold|); the kernel launches 8
+   times per cold flush (6 trace entries, the multi-start selection, the
+   flush's scoring) and 15 per flush with a hit (+ the refine pass's 7),
+   never on the plain path, whose allocations equal its kernel twin's and
+   whose objectives lie within phase 2's tolerance of them. Printed:
+   latency p50/p99, throughput, `solve_s` per flush, each solver's first
+   call, the warm hit rate and outer iterations to converge, the profiled
+   flush's device busy share, and the kernel at each serving launch shape
+   phase 2 does not time (graph replay, bound, plain version).
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
-and every other kernel never; the allocator paths (3, 13 and 14) launch the
-objective kernel and no other. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13 and
-14) is driven with the kernels' launch counts set to 0 just before it and
-read just after. With ``--profile``, one short solve
+and every other kernel never; the allocator paths (3, 13, 14 and 15)
+launch the objective kernel and no other. Each path (3, 5 + 6, 8 + 9,
+11 + 12, 13, 14 and 15) is driven with the kernels' launch counts set to 0
+just before it and read just after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -260,6 +286,15 @@ TABLE2_LEVELS = dict(f_levels=(0.25e9, 2e9, 5), p_levels_dbm=(4.0, 20.0, 4), rho
 #: floating-point operations per (candidate, device) of eq. 13 as the kernel
 #: evaluates it (divisions, products, sums, compares; exp/log counted once)
 OPS_PER_ELEMENT = 24
+#: phase 15's stream: Table I's (10, 50) (bucket (16, 64)) and (6, 16)
+#: (bucket (8, 16)) at the Table-I bbar, Poisson arrivals at the serving
+#: CLI's default rate, its default batching policy
+SERVE_SIZES = ((10, 50), (6, 16))
+SERVE_REQUESTS = 12
+SERVE_RATE_HZ = 20.0
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_S = 8, 0.05
+#: the real-clock driver's drain bound (a flush takes about 20 s)
+SERVE_TIMEOUT_S = 900.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1349,6 +1384,278 @@ def profile_sweep(params, w, levels) -> dict:
     return out
 
 
+class FirstCalls(dict):
+    """An `AllocService` solver cache that records each key's first-call
+    time (``first_call_s``, ending in a synchronize) and every cold call's
+    trace (``cold_traces``), for phase 15's report."""
+
+    def __init__(self):
+        super().__init__()
+        self.first_call_s, self.cold_traces = {}, []
+
+    def __setitem__(self, key, program):
+        import torch
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = program(*args)
+            torch.cuda.synchronize()
+            self.first_call_s.setdefault(key, time.perf_counter() - t0)
+            if "warm-refine" not in key:
+                self.cold_traces.append(out.trace.cpu())
+            return out
+        super().__setitem__(key, timed)
+
+
+def check_completions(requests, completions, what: str) -> None:
+    """Every request answered once, with a binary, feasible allocation of
+    its exact shape whose `Completion.objective` is `system.objective` on
+    the exact-shape scenario to rtol 1e-5."""
+    import torch
+
+    from repro_torch.core import Weights
+    from repro_torch.core.system import feasible, objective
+
+    check(sorted(c.req_id for c in completions) == list(range(len(requests))),
+          f"{what}: not every request answered exactly once")
+    for c in completions:
+        p = requests[c.req_id]
+        a = c.alloc
+        check(a.X.shape == (p.N, p.K), f"{what}: request {c.req_id} answered at shape {tuple(a.X.shape)}")
+        for leaf in ("f", "P", "X", "rho"):
+            check(bool(torch.isfinite(getattr(a, leaf)).all()), f"{what}: non-finite {leaf}")
+        check_binary_x(p, a.X, f"{what} request {c.req_id}")
+        check(bool((a.X.sum(dim=-1) >= 1).all()), f"{what}: a device owns no subcarrier")
+        check(bool(feasible(p, a)), f"{what}: request {c.req_id} infeasible")
+        want = float(objective(p, Weights.ones(p.device), a))
+        check(abs(c.objective - want) <= 1e-5 * abs(want),
+              f"{what}: request {c.req_id} objective {c.objective} != system.objective {want}")
+
+
+def serving_summary(svc, completions, makespan_s: float, what: str) -> dict:
+    """Phase 15's numbers of one pass, printed and returned."""
+    import numpy as np
+
+    lat = [c.latency_s for c in completions]
+    m = svc.metrics.summary()
+    out = dict(requests=len(completions), flushes=m["batches"], makespan_s=makespan_s,
+               throughput_rps=len(completions) / makespan_s,
+               latency_p50_s=float(np.percentile(lat, 50)), latency_p99_s=float(np.percentile(lat, 99)),
+               solve_s=list(svc.metrics.solves_s.sample), mean_batch_size=m["mean_batch_size"],
+               cache_misses=m["cache_misses"], cache_hits=m["cache_hits"], compile_s=m["compile_s"])
+    print(f"serving[{what}]: {out['requests']} requests in {out['flushes']} flushes, makespan "
+          f"{makespan_s:.3f} s, {out['throughput_rps']:.4f} req/s; latency p50 "
+          f"{out['latency_p50_s']:.3f} s, p99 {out['latency_p99_s']:.3f} s; solve_s per flush "
+          + ", ".join(f"{t:.3f}" for t in out["solve_s"]), flush=True)
+    return out
+
+
+def serve_once(svc, requests):
+    """Submit ``requests`` and drain: (completions, solve seconds)."""
+    for p in requests:
+        svc.submit(p)
+    return svc.drain(now=0.0)
+
+
+def profile_flush(svc, requests) -> dict:
+    """One cold flush (solvers already called once) under `torch.profiler`:
+    the device's busy time and the objective kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        done, solve_s = serve_once(svc, requests)
+    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in on_dev) / 1e6
+    kern = [e for e in on_dev if "fedsem_objective_kernel" in e.key]
+    check(busy_s > 0 and sum(e.count for e in kern) > 0,
+          "the serving flush's profile saw no device time or no kernel")
+    top = sorted(on_dev, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    out = dict(requests=len(done), solve_s_profiled=solve_s, device_busy_s=busy_s,
+               kernel_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+               kernel_launches=sum(e.count for e in kern),
+               top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+    return out
+
+
+def phase_serving(device):
+    """Phase 15: the allocation service at Table-I width on the card: the
+    real-clock driver, its virtual replay and a warm pass, then the plain
+    scoring path and one profiled flush."""
+    import collections
+
+    import torch
+
+    from repro_torch.core import AllocatorConfig, Weights, default_accuracy
+    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.scenarios import DEFAULT_STREAM_BBAR
+    from repro_torch.serve import (
+        AllocService, BatchPolicy, RealClockDriver, ServeConfig, WarmStartConfig,
+        entry_from_alloc, iters_to_converge, pace_stream, poisson_arrivals, request_signature,
+        run_load, same_hardened_assignments, scenario_stream,
+    )
+
+    cfg = ServeConfig(policy=BatchPolicy(max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S),
+                      allocator=AllocatorConfig(inner="pgd"))
+    J = cfg.allocator.outer_iters
+    cold_launches, warm_launches = J + 2, 2 * J + 3     # trace, selection, scoring; + refine
+    check((cold_launches, warm_launches) == (8, 15), "unexpected launch counts per flush")
+    requests = scenario_stream(0, SERVE_REQUESTS, scenario="iid_rayleigh", sizes=SERVE_SIZES,
+                               bbar=DEFAULT_STREAM_BBAR, device=device)
+    check(all(p.g.is_cuda for p in requests), "the stream was not drawn on the card")
+    arrivals = poisson_arrivals(1, SERVE_REQUESTS, SERVE_RATE_HZ)
+    programs = FirstCalls()
+    shapes = collections.Counter()
+    launch = kernel.launch
+
+    def counting_launch(args):
+        shapes[(args.B, args.G, args.N)] += 1
+        return launch(args)
+
+    report = {}
+    zero_launches()                                   # the serving path starts here
+    kernel.launch = counting_launch
+    try:
+        # (a) the real-clock driver, paced arrivals, then a drain
+        real_svc = AllocService(cfg, executables=programs, device=device)
+        driver = RealClockDriver(real_svc)
+        futures, t_start = pace_stream(driver, requests, arrivals)
+        driver.close(timeout=SERVE_TIMEOUT_S)
+        real = [f.result(timeout=0.0) for f in futures]
+        report["real"] = serving_summary(real_svc, real, driver.now() - t_start, "real clock")
+        check_completions(requests, real, "serving (real clock)")
+        n_a = kernel.launches
+        check(n_a == cold_launches * real_svc.metrics.batches,
+              f"real clock: {n_a} kernel launches for {real_svc.metrics.batches} cold flushes")
+
+        # (b) the same stream and arrivals on the virtual clock
+        virt_svc = AllocService(cfg, executables=programs, device=device)
+        virt = run_load(virt_svc, requests, arrivals)
+        report["virtual"] = serving_summary(virt_svc, virt.completions, virt.makespan_s, "virtual clock")
+        check_completions(requests, virt.completions, "serving (virtual clock)")
+        n_b = kernel.launches - n_a
+        check(n_b == cold_launches * virt_svc.metrics.batches,
+              f"virtual clock: {n_b} kernel launches for {virt_svc.metrics.batches} cold flushes")
+        check(same_hardened_assignments(real, virt.completions),
+              "the real-clock driver and its virtual replay disagree on some request's X")
+
+        # (c) warm: the cache holds (a)'s solutions, so every request hits;
+        # the stream again, all at once
+        wcfg = WarmStartConfig()
+        warm_svc = AllocService(cfg._replace(warmstart=wcfg), executables=programs, device=device)
+        w, acc = Weights.ones(device), default_accuracy(device)
+        for c in real:
+            warm_svc.warm_cache.put(request_signature(requests[c.req_id], w, acc, wcfg),
+                                    entry_from_alloc(c.alloc, c.objective))
+        n_traces = len(programs.cold_traces)
+        warm = run_load(warm_svc, requests, [0.0] * len(requests))
+        report["warm"] = serving_summary(warm_svc, warm.completions, warm.makespan_s, "warm")
+        check_completions(requests, warm.completions, "serving (warm)")
+        check(all(c.warm_hit for c in warm.completions), "warm pass: a request missed the cache")
+        n_c = kernel.launches - n_a - n_b
+        check(n_c == warm_launches * warm_svc.metrics.batches,
+              f"warm: {n_c} kernel launches for {warm_svc.metrics.batches} flushes with a hit")
+        cold_obj = {c.req_id: c.objective for c in virt.completions}
+        for c in warm.completions:
+            cold = cold_obj[c.req_id]
+            check(c.objective <= cold + 1e-5 * max(1.0, abs(cold)),
+                  f"warm: request {c.req_id} objective {c.objective} > cold {cold}")
+        # the cold traces of the warm flushes' rows (their real rows lead)
+        occupancy = warm_svc.metrics.occupancy.sample
+        cold_iters = [iters_to_converge(t[i]) for t, occ in zip(programs.cold_traces[n_traces:], occupancy)
+                      for i in range(round(occ * SERVE_MAX_BATCH))]
+        stats = warm_svc.warm_cache.stats()
+        m = warm_svc.metrics.summary()
+        report["warm"].update(hit_rate=stats["warm_cache_hit_rate"], warm_iters_mean=m["warm_iters_mean"],
+                              cold_iters_mean=sum(cold_iters) / len(cold_iters),
+                              improved=sum(c.objective < cold_obj[c.req_id] for c in warm.completions))
+        print(f"serving[warm]: hit rate {stats['warm_cache_hit_rate']:.3f}; outer iterations to "
+              f"converge {report['warm']['warm_iters_mean']:.3f} warm vs "
+              f"{report['warm']['cold_iters_mean']:.3f} cold on the same rows; "
+              f"{report['warm']['improved']} of {len(warm.completions)} objectives improved", flush=True)
+
+        # the small bucket's requests at cut depth (a full-depth flush holds
+        # too many events for the profiler): a kernel flush, the same under
+        # the profiler, and the plain scoring path
+        small = [p for p in requests if (p.N, p.K) == SERVE_SIZES[1]][:SERVE_MAX_BATCH]
+        check(bool(small), f"the stream holds no {SERVE_SIZES[1]} request")
+        cut = cfg._replace(allocator=AllocatorConfig(inner="pgd", outer_iters=1, pgd=PGDConfig(steps=100)))
+        cut_programs = {}
+        n_before = kernel.launches
+        twin, twin_s = serve_once(AllocService(cut, cut_programs, device=device), small)
+        prof = profile_flush(AllocService(cut, cut_programs, device=device), small)
+        check(kernel.launches - n_before == 2 * (cut.allocator.outer_iters + 2),
+              "the cut-depth flushes' launches")
+        plain_cfg = cut._replace(allocator=cut.allocator._replace(use_kernel_objective=False))
+        n_before = kernel.launches
+        plain, plain_s = serve_once(AllocService(plain_cfg, device=device), small)
+        check(kernel.launches == n_before, "the plain scoring path launched the kernel")
+    finally:
+        kernel.launch = launch
+    launches = only_objective_launched("the serving path")    # ... and ends here
+
+    by_id = {c.req_id: c for c in twin}
+    for c in plain:
+        k = by_id[c.req_id]
+        for leaf in ("f", "P", "X", "rho"):
+            check(torch.equal(getattr(c.alloc, leaf), getattr(k.alloc, leaf)),
+                  f"plain scoring path: request {c.req_id}'s {leaf} differs from the kernel path's")
+        check(abs(c.objective - k.objective) <= ATOL + RTOL * abs(k.objective),
+              f"plain scoring path: request {c.req_id} objective {c.objective} vs kernel {k.objective}")
+    busy = prof["device_busy_s"] / twin_s
+    report.update(first_call_s={str(k): v for k, v in programs.first_call_s.items()},
+                  launch_shapes={str(k): v for k, v in shapes.items()}, launches=launches,
+                  profile=dict(prof, unprofiled_solve_s=twin_s, busy_share=busy),
+                  plain_solve_s=plain_s)
+    for key, t in programs.first_call_s.items():
+        print(f"serving cache: first call {t:.3f} s for bucket {key[0][:2]}, {key[1]} slots"
+              + (f", warm-refine {key[-1]} candidate(s)" if "warm-refine" in key else ""), flush=True)
+    print(f"serving: {launches} kernel launches ({cold_launches} per cold flush, {warm_launches} per "
+          f"flush with a hit, 0 on the plain path); launch shapes {dict(shapes)}", flush=True)
+    print(f"serving, one cold flush of {prof['requests']} {SERVE_SIZES[1]} requests at cut depth "
+          f"(1 outer iteration, 100 PGD steps), profiled: device busy {prof['device_busy_s']:.4f} s "
+          f"= {100 * busy:.2f}% of the unprofiled flush's {twin_s:.3f} s "
+          f"({prof['solve_s_profiled']:.3f} s profiled); the kernel {prof['kernel_ms']:.3f} ms in "
+          f"{prof['kernel_launches']} launches; the plain scoring path's flush {plain_s:.3f} s, "
+          "the same allocations", flush=True)
+    for key, ms, count in prof["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<7d} {key[:90]}")
+
+    # the kernel at the serving path's launch shapes, against its plain version
+    report["kernel_cases"] = serving_kernel_cases(device, shapes)
+    return report, launches
+
+
+def serving_kernel_cases(device, shapes) -> list:
+    """The objective kernel at each launch shape of the serving path that
+    phase 2 does not time: graph-replay time, plain version, bound."""
+    import torch
+
+    from repro_torch.kernels.fedsem_objective import kernel, ref
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    ab = tuple(torch.tensor(v, device=device) for v in AB)
+    timed = {(16, 3, 10), (48, 1, 10), (64, 8192, 8)} | set(SWEEP_SHAPES)
+    cases = []
+    for B, G, N in sorted(set(shapes) - timed):
+        args, mask, kap = grid_inputs(gen, B, G, N, device)
+        kw = dict(xi=XI, eta=ETA, check_feasible=False)
+        run_k = lambda: kernel.objective_batch(*args, mask, *kap, *AB, **kw)
+        run_p = lambda: ref.objective_grid_batch(*args, *kap, accuracy_ab=ab, dev_mask=mask, **kw)
+        err = compare(run_k(), run_p(), f"serving objective_batch{(B, G, N)}")
+        prep = kernel.prepare(*args, mask, *kap, *AB, **kw)
+        case = dict(shape=[B, G, N], launches=shapes[(B, G, N)], max_abs_err=err,
+                    ms=graph_ms(lambda: kernel.launch(prep)), plain_ms=graph_ms(run_p),
+                    **dict(zip(("bound_ms", "bound_by"), bound(B, G, N, False))))
+        cases.append(case)
+        print(f"serving objective_batch{(B, G, N)} x{case['launches']}: device kernel "
+              f"{case['ms']:.6f} ms, plain {case['plain_ms']:.6f} ms, bound {case['bound_ms']:.7f} ms "
+              f"({case['bound_by']}); max abs err {err:.3g}", flush=True)
+    torch.cuda.synchronize()
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=pathlib.Path, help="also write the full report as JSON here")
@@ -1453,8 +1760,11 @@ def main() -> int:
 
     # phase 14: the exhaustive oracle through the objective kernel
     oracle, oracle_launches = phase_oracle(device)
+
+    # phase 15: the allocation service on the card
+    serving, serving_launches = phase_serving(device)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
-                         "exhaustive": oracle_launches}
+                         "exhaustive": oracle_launches, "serving": serving_launches}
 
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
@@ -1524,7 +1834,7 @@ def main() -> int:
             dict(build_s=build_s, flash_sass=flash_sass, cases=cases, solves=solves,
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
-                 oracle=oracle, record=record, card=smi), indent=1))
+                 oracle=oracle, serving=serving, record=record, card=smi), indent=1))
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,16 @@
 
 Counterpart of `repro.core`, with the same public names for the ported
 pieces; the paper's baselines are `core.baselines`, the exhaustive oracle
-`core.exhaustive`. Not ported yet: warm starts (`ExtraStart`,
-`refine_with_start`), scenario sharding (`core.distribute`, the ``mesh=``
-argument), the serving request stream (`sample_request_stream`) and
-`fit_power_law`.
+`core.exhaustive`; warm starts are `ExtraStart` and `refine_with_start`.
+Not ported yet: scenario sharding (`core.distribute`, the ``mesh=``
+argument, ROADMAP.md §1 item 9) and `fit_power_law` (item 10).
 """
 from .accuracy import AccuracyFn, default_accuracy, stack_accuracy
-from .allocator import AllocatorConfig, AllocatorResult, solve, solve_batch
-from .channel import sample_params, sample_params_batch
+from .allocator import (
+    AllocatorConfig, AllocatorResult, ExtraStart, refine_with_start, sanitize_start,
+    solve, solve_batch,
+)
+from .channel import sample_params, sample_params_batch, sample_request_stream
 from .scoring import batch_objectives, candidate_objectives, scenario_objective
 from .types import (
     DEFAULT_BUCKETS, Allocation, ShapeBucket, SystemParams, Weights,
@@ -19,8 +21,9 @@ from .types import (
 
 __all__ = [
     "AccuracyFn", "default_accuracy", "stack_accuracy",
-    "AllocatorConfig", "AllocatorResult", "solve", "solve_batch",
-    "sample_params", "sample_params_batch",
+    "AllocatorConfig", "AllocatorResult", "ExtraStart", "refine_with_start",
+    "sanitize_start", "solve", "solve_batch",
+    "sample_params", "sample_params_batch", "sample_request_stream",
     "batch_objectives", "candidate_objectives", "scenario_objective",
     "Allocation", "SystemParams", "Weights", "dbm_to_watt",
     "stack_params", "stack_weights", "tree_index",

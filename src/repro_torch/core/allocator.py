@@ -14,12 +14,17 @@ both become one leading axis: row ``b * S + s`` is scenario b from start s,
 so one eager pass solves every scenario and every start together. The
 multi-start selection and every outer iteration's trace entry score all
 rows with one launch of the `fedsem_objective` kernel (`core.scoring`).
+
+Warm starts (`ExtraStart`, `refine_with_start`) lay out their candidates
+the same way: row ``b * C + c`` is scenario b from candidate c, one more
+eager pass per inner, scored together with the cold result in one launch.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .accuracy import AccuracyFn, default_accuracy
@@ -31,6 +36,26 @@ from .system import _col, device_rate, objective
 from .types import Allocation, SystemParams, Weights, tree_index, tree_map
 
 INNERS = ("sca", "pgd", "auto")
+
+
+class ExtraStart(NamedTuple):
+    """Warm-start candidate(s) per scenario.
+
+    ``f``/``P``/``X`` are a prior solution at the scenario's (padded) shape,
+    e.g. a `repro_torch.serve.warmstart` cache hit, as tensors or numpy
+    arrays. ``valid`` is a {0, 1} float: a scenario with ``valid == 0``
+    carries placeholders and its candidate is excluded from the selection
+    (its objective forced to +inf), so a batch can mix hits and misses.
+    Batched use stacks a leading B axis on every leaf. A candidate axis may
+    precede the per-scenario shapes (``valid``: (C,) for one scenario,
+    (B, C) batched): every candidate is refined and competes in the same
+    argmin, the top-k warm-start path.
+    """
+
+    f: object       # (N,) / (B, N), or (C, N) / (B, C, N)
+    P: object       # (N, K) / (B, N, K), or (C, N, K) / (B, C, N, K)
+    X: object       # like P
+    valid: object   # scalar / (B,), or (C,) / (B, C), in {0., 1.}
 
 
 class AllocatorConfig(NamedTuple):
@@ -231,16 +256,7 @@ def _multi_start(
     cand = tree_map(
         lambda *xs: torch.cat([x.unflatten(0, (B, S)) for x in xs], dim=1), *results
     )
-    C = S * len(inners)
-    if cfg.use_kernel_objective:
-        # one kernel launch scores every candidate of every scenario
-        objs = candidate_objectives(params, weights, cand.alloc, acc)
-    else:
-        flat = tree_map(lambda x: x.flatten(0, 1), cand.alloc)
-        objs = objective(
-            *(tree_map(lambda x: rows(x, C), t) for t in (params, weights)),
-            flat, tree_map(lambda x: rows(x, C), acc),
-        ).unflatten(0, (B, C))
+    objs = _score_candidates(params, weights, cand.alloc, acc, cfg)
     best = torch.argmin(objs, dim=1)                  # first occurrence on ties
     idx = torch.arange(B, device=params.device)
     return tree_map(lambda x: x[idx, best], cand)
@@ -251,16 +267,122 @@ def solve(
     weights: Weights,
     cfg: AllocatorConfig = AllocatorConfig(),
     accuracy: AccuracyFn | None = None,
-    extra_start=None,
+    extra_start: ExtraStart | None = None,
 ) -> AllocatorResult:
-    """Alg. A2 for one scenario: `solve_batch` on a batch of one."""
+    """Alg. A2 for one scenario: `solve_batch` on a batch of one.
+
+    ``extra_start`` optionally adds warm-start candidate(s) (`ExtraStart`
+    without the batch axis); `refine_with_start` has its guarantees."""
+    extra = None
     if extra_start is not None:
-        raise NotImplementedError(
-            "warm starts (extra_start) are not ported yet; they come with the "
-            "serving slice"
-        )
-    res = solve_batch(tree_map(lambda x: x[None], params), weights, cfg, accuracy)
+        extra = ExtraStart(*(_as_float(x, params.device)[None] for x in extra_start))
+    res = solve_batch(
+        tree_map(lambda x: x[None], params), weights, cfg, accuracy, extra_starts=extra
+    )
     return tree_index(res, 0)
+
+
+def _as_float(x, device) -> torch.Tensor:
+    """A float32 tensor on ``device`` from a tensor or a numpy array (copied)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def sanitize_start(params: SystemParams, extra: ExtraStart):
+    """Clamp an externally supplied (f, P, X) into the solver's domain.
+
+    Warm starts come from outside the solver (a cache, a previous FL round,
+    possibly another scenario under the same signature): non-finite entries
+    become 0, f is clipped into [1e-6 f_max, f_max], P into [0, p_max] per
+    entry, X into [0, 1], and padded rows and columns are zeroed, so an
+    exact-shape entry padded into a bucket stays inert like the built-in
+    starts. ``params`` and the leaves share their leading axes.
+    """
+    dev = params.device
+    clean = lambda x: torch.nan_to_num(_as_float(x, dev), nan=0.0, posinf=0.0, neginf=0.0)
+    f = torch.minimum(torch.maximum(clean(extra.f), 1e-6 * params.f_max), params.f_max)
+    P = torch.minimum(torch.clamp_min(clean(extra.P), 0.0), params.p_max[..., None])
+    X = torch.clamp(clean(extra.X), 0.0, 1.0)
+    live = params.dev_mask[..., :, None] * params.sc_mask[..., None, :]
+    return f, P * live, X * live
+
+
+def refine_with_start(
+    params: SystemParams,
+    weights: Weights,
+    cfg: AllocatorConfig,
+    acc: AccuracyFn,
+    extra: ExtraStart,
+    base: AllocatorResult,
+) -> AllocatorResult:
+    """Fold warm-start candidates into an already-solved batch.
+
+    ``params`` is batch-stacked (B scenarios), ``base`` their cold
+    `solve_batch` result; ``weights`` and ``acc`` leaves are scalars or (B,).
+    ``extra`` carries one candidate per scenario (``valid`` (B,)) or C of
+    them (``valid`` (B, C)). Each candidate runs the full Alg. A2 pipeline
+    under every inner the config races, as one eager pass over B x C rows
+    per inner; then base and candidates are scored together (one kernel
+    launch with ``cfg.use_kernel_objective``) in the reference's order:
+    base first, then inner-major, then candidate.
+
+    * **Dominance**: the selected objective is min(base, candidates), so a
+      warm start can only help or tie; a garbage candidate scores +inf
+      (not valid, or a non-finite objective) and loses.
+    * **Cold equivalence**: with ``valid == 0`` every candidate of a row is
+      masked and the first-occurrence ``argmin`` picks the base; selection
+      is a gather over the stacked results, so that row is ``base`` bit for
+      bit.
+    """
+    B = params.g.shape[0]
+    dev = params.device
+    valid = _as_float(extra.valid, dev)
+    leaves = [_as_float(x, dev) for x in (extra.f, extra.P, extra.X)]
+    if valid.ndim == 1:                  # one candidate: a candidate axis of 1
+        valid, leaves = valid[:, None], [x[:, None] for x in leaves]
+    C = valid.shape[1]
+    weights, acc = (_per_scenario_tree(t, B, dev) for t in (weights, acc))
+    inners = ("sca", "pgd") if cfg.inner == "auto" else (cfg.inner,)
+
+    def rows(x):
+        return x.repeat_interleave(C, dim=0)
+
+    row_params, row_weights, row_acc = (tree_map(rows, t) for t in (params, weights, acc))
+    start = sanitize_start(row_params, ExtraStart(*(x.flatten(0, 1) for x in leaves), None))
+    results = [
+        _solve_from(row_params, row_weights, cfg._replace(inner=inner), row_acc, start)
+        for inner in inners
+    ]
+    cand = tree_map(
+        lambda b, *xs: torch.cat([b[:, None]] + [x.unflatten(0, (B, C)) for x in xs], dim=1),
+        base, *results,
+    )
+    objs = _score_candidates(params, weights, cand.alloc, acc, cfg)
+    # candidates (every index > 0) compete only when their start was valid
+    # and their objective is finite; the base is never masked
+    valid_vec = torch.cat(
+        [torch.ones((B, 1), device=dev), valid.repeat(1, len(inners))], dim=1
+    )
+    is_cand = torch.arange(valid_vec.shape[1], device=dev) > 0
+    ok = (valid_vec > 0.0) & torch.isfinite(objs)
+    objs = torch.where(is_cand & ~ok, torch.inf, objs)
+    best = torch.argmin(objs, dim=1)                  # first occurrence on ties
+    idx = torch.arange(B, device=dev)
+    return tree_map(lambda x: x[idx, best], cand)
+
+
+def _score_candidates(params, weights, allocs: Allocation, acc, cfg) -> torch.Tensor:
+    """(B, C) objectives of C candidates per scenario: one kernel launch
+    with ``cfg.use_kernel_objective``, else the plain `system.objective`."""
+    if cfg.use_kernel_objective:
+        return candidate_objectives(params, weights, allocs, acc)
+    B, C = allocs.rho.shape
+    rows = lambda x: x.repeat_interleave(C, dim=0)
+    flat = tree_map(lambda x: x.flatten(0, 1), allocs)
+    return objective(
+        *(tree_map(rows, t) for t in (params, weights)), flat, tree_map(rows, acc),
+    ).unflatten(0, (B, C))
 
 
 def _check_batched(tree, b: int, what: str) -> None:
@@ -274,6 +396,14 @@ def _check_batched(tree, b: int, what: str) -> None:
             )
 
 
+def _per_scenario_tree(tree, b: int, dev):
+    """Every leaf of a weights / accuracy tree as a (B,) tensor on ``dev``."""
+    return tree_map(
+        lambda x: torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32).to(dev), (b,)),
+        tree,
+    )
+
+
 def solve_batch(
     params_batch: SystemParams,
     weights: Weights,
@@ -283,7 +413,7 @@ def solve_batch(
     weights_batched: bool = False,
     acc_batched: bool = False,
     mesh=None,
-    extra_starts=None,
+    extra_starts: ExtraStart | None = None,
 ) -> AllocatorResult:
     """Batched Alg. A2: solve B scenarios together on their device.
 
@@ -296,15 +426,18 @@ def solve_batch(
     unless ``acc_batched`` (`stack_accuracy`). Rows are independent, so a
     scenario's answer does not depend on what else is in the batch.
 
-    ``mesh`` (scenario sharding) and ``extra_starts`` (warm starts) are not
-    ported yet and raise `NotImplementedError`.
+    ``extra_starts`` optionally injects warm-start candidate(s) per
+    scenario (an `ExtraStart` with leading-B leaves, optionally a (B, C)
+    candidate axis): the cold batch solves first, unchanged, then
+    `refine_with_start` keeps the per-scenario better. ``None`` is exactly
+    the cold solve.
+
+    ``mesh`` (scenario sharding) is not ported yet and raises
+    `NotImplementedError` (ROADMAP.md §1, item 9).
     """
     if mesh is not None:
-        raise NotImplementedError("scenario sharding (mesh=) is not ported yet")
-    if extra_starts is not None:
         raise NotImplementedError(
-            "warm starts (extra_starts=) are not ported yet; they come with "
-            "the serving slice"
+            "scenario sharding (mesh=) is not ported yet: ROADMAP.md §1, item 9"
         )
     if cfg.inner not in INNERS:
         raise ValueError(f"AllocatorConfig.inner must be one of {INNERS}, got {cfg.inner!r}")
@@ -321,11 +454,19 @@ def solve_batch(
         _check_batched(weights, b, "weights")
     if acc_batched:
         _check_batched(acc, b, "accuracy")
-
-    def per_scenario(x):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32).to(dev), (b,))
+    if extra_starts is not None:
+        v = tuple(np.shape(extra_starts.valid))
+        if len(v) not in (1, 2) or v[0] != b:
+            raise ValueError(
+                "solve_batch(extra_starts=...) requires extra_starts.valid of "
+                f"shape (B,) or (B, C) with B={b} matching params_batch; got "
+                f"{v}. Stack per-scenario warm starts with a leading batch "
+                "axis (repro_torch.serve.warmstart builds these from cache hits)."
+            )
 
     with torch.no_grad():
-        return _multi_start(
-            params_batch, tree_map(per_scenario, weights), cfg, tree_map(per_scenario, acc)
-        )
+        w, a = (_per_scenario_tree(t, b, dev) for t in (weights, acc))
+        base = _multi_start(params_batch, w, cfg, a)
+        if extra_starts is None:
+            return base
+        return refine_with_start(params_batch, w, cfg, a, extra_starts, base)

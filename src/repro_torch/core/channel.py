@@ -8,7 +8,7 @@ takes a JAX key. New code resolves a family by name instead:
     from repro_torch.scenarios import get_family
     params = get_family("iid_rayleigh").sample(0, N=10, K=50)
 
-`sample_request_stream` is the serving slice's and raises until then. The
+`sample_request_stream` is the serving layer's mixed-size stream. The
 imports of `repro_torch.scenarios` sit in the function bodies because that
 package imports `repro_torch.core.types`.
 """
@@ -33,8 +33,8 @@ def sample_params_batch(seed, batch: int, **kwargs) -> SystemParams:
 
 
 def sample_request_stream(seed, n_requests: int, **kwargs) -> list:
-    """The serving request stream (``get_family("iid_rayleigh").stream``):
-    not ported yet, ROADMAP.md §1, item 8."""
+    """A mixed-size serving request stream of ``iid_rayleigh`` scenarios
+    (``get_family("iid_rayleigh").stream``)."""
     from repro_torch.scenarios import get_family
 
     return get_family("iid_rayleigh").stream(seed, n_requests, **kwargs)

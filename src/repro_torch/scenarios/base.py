@@ -11,11 +11,15 @@ cannot be reproduced in torch.
     params = fam.sample(0, N=10, K=50)                 # one SystemParams, on cuda
     batch = fam.sample_batch(0, 16, N=10, K=50)        # stacked (16, N, K)
 
+    requests = fam.stream(0, 64, sizes=((3, 8), (4, 12)))  # serving stream
+
 ``sample_batch`` draws one leading batch shape from one generator: its rows
 are i.i.d. draws of the family's law, but not the draws ``sample`` would make
 one by one (the reference's "batch == stacked singles" holds there by
-`vmap` over split keys). ``stream``, the serving layer's request stream,
-comes with the serving slice and raises until then.
+`vmap` over split keys). ``stream`` is the serving layer's mixed-size
+request stream, all sharing one per-subcarrier bandwidth ``bbar`` so
+different sizes co-batch in one `ShapeBucket`; the default redraws i.i.d.
+per request, ``gauss_markov`` overrides it with time-correlated traces.
 """
 from __future__ import annotations
 
@@ -119,12 +123,49 @@ class ScenarioFamily:
         dev = resolve_device(device)
         return self.draw(generator(seed, dev), (batch,), device=dev, **kwargs)
 
-    def stream(self, seed, n_requests: int, **kwargs):
-        """The serving layer's mixed-size request stream: not ported yet."""
-        raise NotImplementedError(
-            f"{self.name}.stream (the serving request stream) is not ported yet: "
-            "ROADMAP.md §1, item 8 (serving)"
-        )
+    def stream(
+        self,
+        seed,
+        n_requests: int,
+        *,
+        sizes=DEFAULT_STREAM_SIZES,
+        bbar: float = DEFAULT_STREAM_BBAR,
+        device="cuda",
+        **kwargs,
+    ) -> list[SystemParams]:
+        """Draw a mixed-size request stream for the serving layer.
+
+        Each request picks a uniform (N, K) from ``sizes`` and has the
+        bandwidth ``bbar * K``, so every size shares the per-subcarrier
+        bandwidth ``bbar`` and pads into one `ShapeBucket`. Requests are
+        i.i.d. draws of the family's law, all from one generator.
+        """
+        sizes = tuple(sizes)
+        _validate_stream(n_requests, sizes)
+        dev = resolve_device(device)
+        gen = generator(seed, dev)
+        out = []
+        for _ in range(n_requests):
+            n, k = sizes[pick(gen, len(sizes), dev)]
+            out.append(self.draw(gen, (), device=dev, N=n, K=k, B=bbar * k, **kwargs))
+        return out
+
+
+def pick(gen: torch.Generator, n: int, device) -> int:
+    """A uniform index in [0, n)."""
+    return int(torch.randint(0, n, (), generator=gen, device=device))
+
+
+def _validate_stream(n_requests: int, sizes: tuple) -> None:
+    if n_requests < 1:
+        raise ValueError(f"n_requests must be >= 1, got {n_requests}")
+    if not sizes:
+        raise ValueError("stream needs at least one (N, K) size")
+    for n, k in sizes:
+        if k < n:
+            raise ValueError(
+                f"stream size (N={n}, K={k}) violates K >= N (SystemParams contract)"
+            )
 
 
 # ---------------------------------------------------------------------------

@@ -378,10 +378,6 @@ def test_unported_options_raise():
     tp = stack_params([_scenario(0)[1]])
     with pytest.raises(NotImplementedError, match="mesh"):
         solve_batch(tp, Weights.ones(), CHEAP, mesh=object())
-    with pytest.raises(NotImplementedError, match="warm"):
-        solve_batch(tp, Weights.ones(), CHEAP, extra_starts=object())
-    with pytest.raises(NotImplementedError, match="warm"):
-        solve(tree_index(tp, 0), Weights.ones(), CHEAP, extra_start=object())
     with pytest.raises(ValueError, match="inner"):
         solve_batch(tp, Weights.ones(), CHEAP._replace(inner="newton"))
     with pytest.raises(ValueError, match=r"\(B, N, K\)"):

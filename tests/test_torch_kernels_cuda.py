@@ -610,3 +610,98 @@ def test_exhaustive_sweep_kernel_matches_plain_version(card, name, padded):
     assert abs(vk - vp) <= 1e-5 + 5e-7 * abs(vp)
     # a real subcarrier a padded device owns is one left unassigned
     assert bool(feasible(exact, unpad_alloc(got.alloc, 3, 4)))
+
+
+# ---------------------------------------------------------------------------
+# serving: every flush solved and scored through the objective kernel
+# ---------------------------------------------------------------------------
+
+
+def _serve_cfg(outer_iters=2, **allocator):
+    from repro_torch.core import AllocatorConfig
+    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.serve import BatchPolicy, ServeConfig
+
+    alloc = AllocatorConfig(inner="pgd", outer_iters=outer_iters, pgd=PGDConfig(steps=40), **allocator)
+    return ServeConfig(policy=BatchPolicy(max_batch=2, max_wait_s=0.01), allocator=alloc)
+
+
+def _serve(svc, requests, **submit):
+    for p in requests:
+        svc.submit(p, **submit)
+    return {c.req_id: c for c in svc.drain(now=0.0)[0]}
+
+
+@pytest.mark.cuda
+def test_service_flush_launches_the_kernel_8_then_15_times(card):
+    """At the default 6 outer iterations a cold flush launches the kernel 8
+    times (6 trace entries, the multi-start selection, the flush's scoring)
+    and a flush with a warm-start hit 15 (+ the refine pass's 7)."""
+    from repro_torch.core import sample_request_stream
+    from repro_torch.serve import AllocService, WarmStartConfig
+
+    requests = sample_request_stream(3, 2, sizes=((3, 8),), device=card)
+    svc = AllocService(_serve_cfg(6)._replace(warmstart=WarmStartConfig()), device=card)
+    before = kernel.launches
+    cold = _serve(svc, requests)
+    assert kernel.launches - before == 8
+    assert not any(c.warm_hit for c in cold.values())
+    before = kernel.launches
+    warm = _serve(svc, requests)
+    assert kernel.launches - before == 15
+    assert all(c.warm_hit for c in warm.values())
+
+
+@pytest.mark.cuda
+def test_service_flush_on_the_card_equals_the_cpu_flush(card):
+    """The same requests flushed on the card and on the CPU: the same X."""
+    from repro_torch.core import sample_request_stream
+    from repro_torch.core.types import tree_map
+    from repro_torch.serve import AllocService
+
+    cpu_reqs = sample_request_stream(4, 4, sizes=((3, 8), (4, 12)), device="cpu")
+    on_cpu = _serve(AllocService(_serve_cfg(), device="cpu"), cpu_reqs)
+    on_card = _serve(AllocService(_serve_cfg(), device=card),
+                     [tree_map(lambda x: x.to(card), p) for p in cpu_reqs])
+    for i, c in on_cpu.items():
+        assert torch.equal(on_card[i].alloc.X.cpu(), c.alloc.X)
+
+
+@pytest.mark.cuda
+def test_completion_objective_kernel_equals_the_plain_path(card):
+    """Kernel scoring and the plain path (``use_kernel_objective=False``,
+    no launch) give the same allocations, and `Completion.objective`s
+    within the kernel's tolerance (rtol 5e-7, atol 1e-5)."""
+    from repro_torch.core import sample_request_stream
+    from repro_torch.serve import AllocService
+
+    requests = sample_request_stream(5, 4, sizes=((3, 8), (4, 8)), device=card)
+    with_kernel = _serve(AllocService(_serve_cfg(), device=card), requests)
+    before = kernel.launches
+    plain = _serve(AllocService(_serve_cfg(use_kernel_objective=False), device=card), requests)
+    assert kernel.launches == before
+    for i, c in plain.items():
+        for leaf in ("f", "P", "X", "rho"):
+            assert torch.equal(getattr(c.alloc, leaf), getattr(with_kernel[i].alloc, leaf)), leaf
+    ids = sorted(plain)
+    assert_scores([with_kernel[i].objective for i in ids], [plain[i].objective for i in ids])
+
+
+@pytest.mark.cuda
+def test_real_clock_driver_on_the_card_equals_its_virtual_replay(card):
+    """Paced arrivals through the real-clock driver on the card and the same
+    stream on the virtual clock: the same req_id -> X."""
+    from repro_torch.core import sample_request_stream
+    from repro_torch.serve import (
+        AllocService, RealClockDriver, pace_stream, run_load, same_hardened_assignments,
+    )
+
+    requests = sample_request_stream(6, 6, sizes=((3, 8), (4, 8)), device=card)
+    svc = AllocService(_serve_cfg(), device=card)
+    driver = RealClockDriver(svc)
+    futures, _ = pace_stream(driver, requests, [0.003 * i for i in range(len(requests))])
+    driver.close(timeout=600)
+    real = [f.result(timeout=0.0) for f in futures]
+    replay = run_load(AllocService(_serve_cfg(), svc.executables, device=card), requests,
+                      [0.0] * len(requests))
+    assert same_hardened_assignments(real, replay.completions)

@@ -14,6 +14,8 @@ held to the reference's laws and invariants, not to its draws:
   the cycle count), each at p > 1e-3;
 * Alg. A2 feasible and no worse than every baseline on each family's draws.
 """
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from scipy import stats
 
 from repro.scenarios import build_classes as jbuild_classes, get_family as jget_family
 from repro.scenarios import list_families as jlist_families
+from repro.core import sample_request_stream as jsample_request_stream
 from repro_torch.core import AllocatorConfig, Weights, sample_params, solve_batch
 from repro_torch.core import baselines as B
 from repro_torch.core.channel import sample_request_stream
@@ -37,6 +40,7 @@ from repro_torch.scenarios import (
     register,
 )
 from repro_torch.scenarios.ris_geometry import large_scale_gain
+from repro_torch.serve import poisson_arrivals
 from torch_port_util import np_
 
 torch.set_num_threads(1)
@@ -81,15 +85,46 @@ def test_channel_shims_are_the_registry_family():
         assert torch.equal(getattr(a, k), getattr(b, k)), k
 
 
+#: bad stream arguments, each raising the same ValueError in both packages
+#: (`_validate_stream`; ``corr`` only for ``gauss_markov``)
+BAD_STREAMS = [dict(n_requests=0), dict(sizes=()), dict(sizes=((4, 3),)), dict(corr=1.0)]
+
+
+def _stream_error(fam, seed, kw):
+    n = kw.pop("n_requests", 4)
+    with pytest.raises(ValueError) as err:
+        fam.stream(seed, n, **kw)
+    return str(err.value)
+
+
 @pytest.mark.parametrize("name", FAMILIES)
 def test_stream_raises_naming_the_serving_item(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 8"):
-        get_family(name).stream(0, 4)
+    """The serving stream's argument errors (`_validate_stream`, and
+    ``gauss_markov``'s ``corr``) are the reference's, message for message;
+    a valid stream draws its sizes from ``sizes`` with B = bbar K."""
+    for bad in BAD_STREAMS:
+        if "corr" in bad and name != "gauss_markov":
+            continue
+        assert _stream_error(get_family(name), 0, {**bad, "device": "cpu"}) == \
+            _stream_error(jget_family(name), jax.random.PRNGKey(0), dict(bad))
+    sizes = ((3, 8), (4, 12))
+    for p in get_family(name).stream(0, 6, sizes=sizes, device="cpu"):
+        assert (p.N, p.K) in sizes and p.B == DEFAULT_STREAM_BBAR * p.K
+        assert p.g.shape == (p.N, p.K) and bool((p.g > 0).all())
 
 
 def test_request_stream_shim_raises_naming_the_serving_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 8"):
-        sample_request_stream(0, 4)
+    """`core.channel.sample_request_stream` is the ``iid_rayleigh`` stream,
+    draw for draw, and raises the reference shim's errors."""
+    a = sample_request_stream(5, 4, sizes=((3, 8), (4, 12)), device="cpu")
+    b = get_family("iid_rayleigh").stream(5, 4, sizes=((3, 8), (4, 12)), device="cpu")
+    for pa, pb in zip(a, b):
+        assert (pa.N, pa.K, pa.B) == (pb.N, pb.K, pb.B) and torch.equal(pa.g, pb.g)
+    with pytest.raises(ValueError) as got:
+        sample_request_stream(0, 0, device="cpu")
+    with pytest.raises(ValueError) as want:
+        jsample_request_stream(jax.random.PRNGKey(0), 0)
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +218,15 @@ def _law_statistics(g, c):
                 c=np.asarray(c, np.float64).reshape(-1))
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_draws(name):
+    """The reference's law-test draws of one family (shared by the tests)."""
+    return jget_family(name).sample_batch(jax.random.PRNGKey(17), LAW_BATCH, N=LAW_N, K=LAW_K)
+
+
 @pytest.mark.parametrize("name", FAMILIES)
 def test_family_draws_the_references_law(name):
-    want = jget_family(name).sample_batch(jax.random.PRNGKey(17), LAW_BATCH, N=LAW_N, K=LAW_K)
+    want = _reference_draws(name)
     got = get_family(name).sample_batch(17, LAW_BATCH, N=LAW_N, K=LAW_K, device="cpu")
     w, t = _law_statistics(want.g, want.c), _law_statistics(np_(got.g), np_(got.c))
     for stat in w:
@@ -197,6 +238,75 @@ def test_family_draws_the_references_law(name):
         assert set(np_(getattr(got, k)).ravel()) == set(np.asarray(getattr(want, k)).ravel()), k
     assert set(np_(got.p_max).ravel()) <= set(np.asarray(want.p_max).ravel())
     assert set(np_(got.f_max).ravel()) <= set(np.asarray(want.f_max).ravel())
+
+
+def _ks_against_reference(name, got_stats, stats_to_check):
+    want = _reference_draws(name)
+    w = _law_statistics(want.g, want.c)
+    for stat in stats_to_check:
+        p = stats.ks_2samp(got_stats[stat], w[stat]).pvalue
+        assert p > LAW_P, f"{name} stream: {stat} KS p-value {p}"
+
+
+@pytest.mark.parametrize("name", [f for f in FAMILIES if f != "gauss_markov"])
+def test_stream_draws_the_references_law(name):
+    """The i.i.d. default stream: each request is one draw of the family's
+    law, so LAW_BATCH requests of (LAW_N, LAW_K) pass the law test against
+    the reference's draws."""
+    reqs = get_family(name).stream(17, LAW_BATCH, sizes=((LAW_N, LAW_K),), device="cpu")
+    got = _law_statistics(np.stack([np_(p.g) for p in reqs]), np.stack([np_(p.c) for p in reqs]))
+    _ks_against_reference(name, got, ("large_scale", "fading", "c"))
+
+
+def test_gauss_markov_stream_draws_the_references_law():
+    """``gauss_markov``'s stream keeps one population per size: its first
+    request of each of 60 sizes gives independent devices (large-scale gain
+    and cycles), and at ``corr = 0`` every request's fading is a fresh
+    draw; both pass the law test against the reference's stationary draws."""
+    sizes = tuple((n, LAW_K) for n in range(1, 61))
+    reqs = get_family("gauss_markov").stream(17, 240, sizes=sizes, corr=0.0, device="cpu")
+    first = {}
+    for p in reqs:
+        first.setdefault(p.N, p)
+    pops = [_law_statistics(np_(p.g), np_(p.c)) for p in first.values()]
+    fading = np.concatenate([_law_statistics(np_(p.g), np_(p.c))["fading"] for p in reqs])
+    got = {k: np.concatenate([s[k] for s in pops]) for k in ("large_scale", "c")}
+    assert len(got["c"]) > 1000 and len(fading) > 5000
+    _ks_against_reference("gauss_markov", {**got, "fading": fading}, ("large_scale", "c", "fading"))
+
+
+@pytest.mark.parametrize("corr", [0.9, 0.5])
+def test_gauss_markov_stream_lag1_correlation_is_corr(corr):
+    """A recurring size's envelope follows x' = corr x + sqrt(1 - corr^2)
+    eps: its power gain (x^2 + y^2)/2, the large-scale gain divided out,
+    keeps its unit-mean exponential marginal and has lag-1 correlation
+    corr^2 (that of the squared envelope of a Gaussian AR(1) with
+    coefficient corr)."""
+    reqs = get_family("gauss_markov").stream(3, 400, sizes=((LAW_N, LAW_K),), corr=corr,
+                                             device="cpu")
+    g = np.stack([np_(p.g) for p in reqs]).astype(np.float64)     # (T, N, K)
+    e = g / g.mean(axis=(0, 2), keepdims=True)                      # large scale out
+    assert abs(e.mean() - 1.0) < 0.05
+    a, b = e[:-1].ravel(), e[1:].ravel()
+    assert abs(np.corrcoef(a, b)[0, 1] - corr**2) < 0.04
+
+
+def test_poisson_arrivals_gaps_are_exponential_at_the_rate():
+    """Ascending times whose gaps pass a KS test against the exponential
+    law at the rate; a generator or a seed gives the same times; a
+    non-positive rate raises the reference's error."""
+    rate = 20.0
+    t = poisson_arrivals(5, 2000, rate)
+    assert (np.diff(t) >= 0).all()
+    gaps = np.diff(np.concatenate([[0.0], t]))
+    assert stats.kstest(gaps, "expon", args=(0.0, 1.0 / rate)).pvalue > LAW_P
+    np.testing.assert_array_equal(t, poisson_arrivals(torch.Generator().manual_seed(5), 2000, rate))
+    from repro.serve import poisson_arrivals as jpoisson_arrivals
+    with pytest.raises(ValueError) as got:
+        poisson_arrivals(0, 4, 0.0)
+    with pytest.raises(ValueError) as want:
+        jpoisson_arrivals(jax.random.PRNGKey(0), 4, 0.0)
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
