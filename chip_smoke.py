@@ -180,13 +180,34 @@ the CPU in place of the card):
    latency p50/p99, throughput, `solve_s` per flush, each solver's first
    call, the warm hit rate and outer iterations to converge, the profiled
    flush's device busy share, and the kernel at each serving launch shape
-   phase 2 does not time (graph replay, bound, plain version).
+   phase 2 does not time (graph replay, bound, plain version);
+16. the FedSem closed loop (`repro_torch.launch.fedsem_e2e`) on the card
+   at the reference's full harness (`harness_config(smoke=False)`: jobs
+   `hetero_classes` (4, 12), `gauss_markov` (4, 12) and `iid_rayleigh`
+   (6, 16), 6 rounds, `AEConfig(image_size=32, hidden=8, base_latent=8)`,
+   batch 8, eval batch 16, max_batch 4, max_wait 20 ms), the allocator cut
+   to the reference's smoke allocator (2 outer iterations, 60 PGD steps;
+   `FEDSEM_REDUCED`). Gates: the four e2e gates (ServiceBackend's X equals
+   PlannedBackend's exactly, rho within 1e-6; an applied, monotone refit;
+   every job complete; each job's solo re-run equal to its co-tenanted run
+   exactly); the objective kernel launched exactly 3 times per
+   `solve_batch` call and once per flush's scoring, by the phase's own
+   counts of both; the planned batch of e2e phase 1 solved on the card's
+   scenario mesh (`scenario_mesh()`) with the unsharded X and launches;
+   a ``shard_batch`` service with device count x max_batch slots answering
+   its rounds as the unsharded service. Printed: wall time per e2e phase,
+   each job's loss, rho, energy, objective and proxy accuracy per round,
+   the service's latency p95 and occupancy, one round's device busy share
+   (`torch.profiler`, device activity: the round with its allocation
+   answered at once, then the allocation's flush alone; the round is their
+   sum), and the kernel at the phase's launch shapes
+   (graph replay, bound, plain version).
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
-and every other kernel never; the allocator paths (3, 13, 14 and 15)
+and every other kernel never; the allocator paths (3, 13, 14, 15 and 16)
 launch the objective kernel and no other. Each path (3, 5 + 6, 8 + 9,
-11 + 12, 13, 14 and 15) is driven with the kernels' launch counts set to 0
+11 + 12, 13, 14, 15 and 16) is driven with the kernels' launch counts set to 0
 just before it and read just after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
@@ -201,6 +222,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
 import os
 import pathlib
 import re
@@ -295,6 +317,12 @@ SERVE_RATE_HZ = 20.0
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S = 8, 0.05
 #: the real-clock driver's drain bound (a flush takes about 20 s)
 SERVE_TIMEOUT_S = 900.0
+#: phase 16: `fedsem_e2e`'s seed, and its cut
+FEDSEM_SEED = 0
+FEDSEM_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference's smoke "
+                  "allocator, AllocatorConfig(inner='pgd', outer_iters=2, "
+                  "pgd=PGDConfig(steps=60)); about 50 allocations at default depth would take "
+                  "about 18 s each")
 
 
 class SmokeFailure(RuntimeError):
@@ -558,6 +586,21 @@ def phase_slice(device):
         main_path_launches, (params, solves["pgd"]["res"])
 
 
+def cut_configs() -> dict:
+    """The serving and the default config at cut depth (1 outer iteration,
+    100 PGD steps; SCA's P5 1 x 100): their step structure, a fraction of
+    their steps, for the profiled solves and phase 15's profiled flush."""
+    from repro_torch.core import AllocatorConfig
+    from repro_torch.core.p5 import P5Config
+    from repro_torch.core.pgd import PGDConfig
+
+    return {
+        "pgd": AllocatorConfig(inner="pgd", outer_iters=1, pgd=PGDConfig(steps=100)),
+        "sca": AllocatorConfig(outer_iters=1, p5=P5Config(outer_iters=1, inner_iters=100),
+                               pgd=PGDConfig(steps=100)),
+    }
+
+
 def phase_profile(device):
     """Where a solve's time goes: one short solve per config (the default
     configs' step structure at cut depth) under `torch.profiler`, with the
@@ -566,20 +609,13 @@ def phase_profile(device):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import AllocatorConfig, Weights, solve_batch
-    from repro_torch.core.p5 import P5Config
-    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.core import Weights, solve_batch
     from repro_torch.scenarios import get_family
 
     params = get_family("iid_rayleigh").sample_batch(0, 16, N=10, K=50, device=device)
     w = Weights.ones(device)
-    configs = {
-        "pgd": AllocatorConfig(inner="pgd", outer_iters=1, pgd=PGDConfig(steps=100)),
-        "sca": AllocatorConfig(outer_iters=1, p5=P5Config(outer_iters=1, inner_iters=100),
-                               pgd=PGDConfig(steps=100)),
-    }
     out = {}
-    for name, cfg in configs.items():
+    for name, cfg in cut_configs().items():
         solve_batch(params, w, cfg)                     # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1478,6 +1514,23 @@ def profile_flush(svc, requests) -> dict:
     return out
 
 
+class Counting:
+    """Replace ``module.name`` with a wrapper that counts its calls (and
+    records each call's launch shape for the kernel's `launch`) until
+    `restore`."""
+
+    def __init__(self, counts, key, module, name, shape_of=None):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            counts[key if shape_of is None else shape_of(*args)] += 1
+            return self.orig(*args, **kwargs)
+        setattr(module, name, wrapped)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
 def phase_serving(device):
     """Phase 15: the allocation service at Table-I width on the card: the
     real-clock driver, its virtual replay and a warm pass, then the plain
@@ -1507,15 +1560,9 @@ def phase_serving(device):
     arrivals = poisson_arrivals(1, SERVE_REQUESTS, SERVE_RATE_HZ)
     programs = FirstCalls()
     shapes = collections.Counter()
-    launch = kernel.launch
-
-    def counting_launch(args):
-        shapes[(args.B, args.G, args.N)] += 1
-        return launch(args)
-
     report = {}
     zero_launches()                                   # the serving path starts here
-    kernel.launch = counting_launch
+    counting = Counting(shapes, None, kernel, "launch", lambda a: (a.B, a.G, a.N))
     try:
         # (a) the real-clock driver, paced arrivals, then a drain
         real_svc = AllocService(cfg, executables=programs, device=device)
@@ -1580,7 +1627,7 @@ def phase_serving(device):
         # the profiler, and the plain scoring path
         small = [p for p in requests if (p.N, p.K) == SERVE_SIZES[1]][:SERVE_MAX_BATCH]
         check(bool(small), f"the stream holds no {SERVE_SIZES[1]} request")
-        cut = cfg._replace(allocator=AllocatorConfig(inner="pgd", outer_iters=1, pgd=PGDConfig(steps=100)))
+        cut = cfg._replace(allocator=cut_configs()["pgd"])
         cut_programs = {}
         n_before = kernel.launches
         twin, twin_s = serve_once(AllocService(cut, cut_programs, device=device), small)
@@ -1592,7 +1639,7 @@ def phase_serving(device):
         plain, plain_s = serve_once(AllocService(plain_cfg, device=device), small)
         check(kernel.launches == n_before, "the plain scoring path launched the kernel")
     finally:
-        kernel.launch = launch
+        counting.restore()
     launches = only_objective_launched("the serving path")    # ... and ends here
 
     by_id = {c.req_id: c for c in twin}
@@ -1654,6 +1701,173 @@ def serving_kernel_cases(device, shapes) -> list:
               f"({case['bound_by']}); max abs err {err:.3g}", flush=True)
     torch.cuda.synchronize()
     return cases
+
+
+def profile_round(job, backend_of, seed: int) -> dict:
+    """One round of ``job`` (a one-round `SemComJob`) in two windows of
+    `torch.profiler` (device activity only: a CPU-side trace of a solve is
+    too large to read back in time): the round's training, measurements and
+    bookkeeping, with the allocation answered at once by a recorded
+    backend; and the allocation alone, one flush of the service. The
+    round is their sum. Solvers and kernels are called once before."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl import AllocationBackend
+
+    class Answered(AllocationBackend):
+        def __init__(self, alloc):
+            self.alloc = alloc
+
+        def open(self, scenarios, weights):
+            pass
+
+        def allocate(self, rnd):
+            return self.alloc
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in on_dev) / 1e6
+        kern = sum(e.count for e in on_dev if "fedsem_objective_kernel" in e.key)
+        return out, wall, busy, kern
+
+    seen = {}
+    backend = backend_of()
+    open_, allocate = backend.open, backend.allocate
+    backend.open = lambda scenarios, weights: seen.update(args=(scenarios, weights)) or open_(
+        scenarios, weights)
+    backend.allocate = lambda rnd: seen.setdefault("alloc", allocate(rnd))
+    job.run(seed, backend)                                   # first calls
+    _, train_wall, train_busy, train_kern = window(lambda: job.run(seed, Answered(seen["alloc"])))
+    backend = backend_of()
+    backend.open(*seen["args"])
+    _, alloc_wall, alloc_busy, alloc_kern = window(lambda: backend.allocate(0))
+    check(train_busy > 0 and alloc_busy > 0 and alloc_kern > 0 and train_kern == 0,
+          "the profiled round saw no device time, or the kernel where it does not belong")
+    round_wall, round_busy = train_wall + alloc_wall, train_busy + alloc_busy
+    return dict(round_wall_s=round_wall, round_busy_s=round_busy, alloc_wall_s=alloc_wall,
+                alloc_busy_s=alloc_busy, alloc_kernel_launches=alloc_kern, train_wall_s=train_wall,
+                train_busy_s=train_busy, busy_share=round_busy / round_wall,
+                alloc_busy_share=alloc_busy / alloc_wall, train_busy_share=train_busy / train_wall)
+
+
+def phase_fedsem(device):
+    """Phase 16: `repro_torch.launch.fedsem_e2e`'s four phases at the
+    reference's full harness, the allocator cut to its smoke depth; every
+    allocation's launches counted; the sharding pass; one round profiled;
+    the kernel at the phase's launch shapes."""
+    import collections
+
+    import torch
+
+    from repro_torch.core import Weights, scenario_mesh, solve_batch, stack_params
+    from repro_torch.fl import ServiceBackend, alloc_backend, fold_seed, sample_round_scenarios
+    from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.launch import fedsem_e2e as e2e
+    from repro_torch.serve import AllocService
+    from repro_torch.serve import service as service_mod
+
+    _, serve_cfg, specs, rounds, ae, batch, eval_batch = e2e.harness_config(smoke=False)
+    cut = e2e.SMOKE_ALLOCATOR
+    serve_cfg = serve_cfg._replace(allocator=cut)
+    per_solve = cut.outer_iters + 1               # the trace entries and the selection
+    report = dict(reduced=FEDSEM_REDUCED, jobs_spec=specs, rounds=rounds, ae=ae._asdict(),
+                  batch=batch, eval_batch=eval_batch, policy=serve_cfg.policy._asdict())
+    counts, shapes = collections.Counter(), collections.Counter()
+    patches = [Counting(counts, "solve", service_mod, "solve_batch"),
+               Counting(counts, "solve", alloc_backend, "solve_batch"),
+               Counting(counts, "score", service_mod, "batch_objectives"),
+               Counting(shapes, None, kernel, "launch", lambda a: (a.B, a.G, a.N))]
+    zero_launches()                                   # the closed loop starts here
+    try:
+        e2e_report = e2e.run_e2e(FEDSEM_SEED, cut, serve_cfg, specs, rounds, ae, batch, eval_batch,
+                                 device=device, log=lambda m: print(f"fedsem {m}", flush=True))
+    finally:
+        for patch in patches:
+            patch.restore()
+    launches = only_objective_launched("the FedSem closed loop")    # ... and ends here
+    expected = per_solve * counts["solve"] + counts["score"]
+    print(f"fedsem: {launches} objective-kernel launches = {per_solve} x {counts['solve']} solves "
+          f"+ {counts['score']} flush scorings ({expected} expected); launch shapes {dict(shapes)}",
+          flush=True)
+    check(counts["solve"] > 0 and launches == expected,
+          f"fedsem: {launches} kernel launches, {expected} expected from the solves and flushes")
+    eq, refit, nonint = (e2e_report[k] for k in ("equivalence", "refit", "noninterference"))
+    check(eq["equivalent"], f"fedsem: ServiceBackend != PlannedBackend on X or rho: {eq}")
+    check(refit["ok"], f"fedsem: the refit was not applied or is not monotone: {refit}")
+    check(all(j["rounds"] == rounds for j in e2e_report["jobs"]), "fedsem: a job did not complete")
+    check(nonint["ok"], f"fedsem: a solo re-run differs from its co-tenanted run: {nonint}")
+    check(e2e_report["ok"], "fedsem_e2e's gates")
+    for j in e2e_report["jobs"]:
+        for key in ("loss", "rho", "energy", "objective"):
+            check(all(map(math.isfinite, j[key])), f"fedsem: job {j['job']} has a non-finite {key}")
+        print(f"fedsem job {j['job']}: loss {fmt(j['loss'])}; rho {fmt(j['rho'])}; energy "
+              f"{fmt(j['energy'])} J; objective {fmt(j['objective'])}; proxy accuracy "
+              f"{fmt(j['proxy_accuracy'])}; refit at round {j['refit_round']}", flush=True)
+    svc = e2e_report["service"]
+    print(f"fedsem service: {svc['completed']} requests in {svc['batches']} flushes, latency p95 "
+          f"{svc['latency_p95_s']:.3f} s, p50 {svc['latency_p50_s']:.3f} s, occupancy "
+          f"{svc['batch_occupancy_mean']:.3f}; wall per e2e phase "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in e2e_report["wall_s"].items()), flush=True)
+    report.update(e2e=e2e_report, launches=launches, solves=counts["solve"],
+                  flushes=counts["score"], launch_shapes={str(k): v for k, v in shapes.items()})
+
+    # the sharding pass: phase 1's planned batch on the card's scenario mesh
+    t0 = time.perf_counter()
+    probe = e2e.make_job(specs[0], rounds, ae, batch, eval_batch, device=device)
+    scen = sample_round_scenarios(fold_seed(FEDSEM_SEED, 100), probe.cfg.fl, e2e.upload_bits(probe),
+                                  device)
+    pb, w, mesh = stack_params(scen), Weights.ones(device), scenario_mesh()
+    n0 = kernel.launches
+    single = solve_batch(pb, w, cut)
+    n1 = kernel.launches
+    sharded = solve_batch(pb, w, cut, mesh=mesh)
+    n2 = kernel.launches
+    check(torch.equal(sharded.alloc.X, single.alloc.X), "fedsem: the sharded solve's X differs")
+    check(n1 - n0 == per_solve and n2 - n1 == per_solve * len(mesh),
+          f"fedsem: launches unsharded {n1 - n0}, sharded {n2 - n1} on {len(mesh)} device(s)")
+    svc_sharded = AllocService(serve_cfg._replace(shard_batch=True), device=device)
+    slots = torch.cuda.device_count() * serve_cfg.policy.max_batch
+    check(svc_sharded.mesh == mesh and svc_sharded._full_slots == slots,
+          f"fedsem: a sharded service of {svc_sharded._full_slots} slots, {slots} expected")
+    by_sharded, _ = serve_once(svc_sharded, scen)
+    by_single, _ = serve_once(AllocService(serve_cfg, device=device), scen)
+    x_of = {c.req_id: c.alloc.X for c in by_single}
+    check(len(by_sharded) == len(scen) and all(torch.equal(c.alloc.X, x_of[c.req_id]) for c in by_sharded),
+          "fedsem: the sharded service's X differs from the unsharded service's")
+    report["sharding"] = dict(mesh=[str(d) for d in mesh], slots=slots, launches_single=n1 - n0,
+                              launches_sharded=n2 - n1, wall_s=time.perf_counter() - t0)
+    print(f"fedsem sharding: mesh {report['sharding']['mesh']}; the planned batch's X sharded == "
+          f"unsharded ({n2 - n1} and {n1 - n0} launches); a shard_batch service of {slots} slots "
+          f"answers the {len(scen)} rounds as the unsharded one", flush=True)
+
+    # one round's device busy share, training against allocation
+    job = e2e.make_job(specs[2], 1, ae, batch, eval_batch, device=device)
+    programs: dict = {}
+    prof = profile_round(job, lambda: ServiceBackend(AllocService(serve_cfg, programs, device=device)),
+                         fold_seed(FEDSEM_SEED, 400))
+    report["profile"] = prof
+    print(f"fedsem round profile ({job.cfg.name}, N {job.cfg.fl.n_clients}, K "
+          f"{job.cfg.fl.n_subcarriers}, device activity profiled): round {prof['round_wall_s']:.3f} s, "
+          f"device busy {prof['round_busy_s']:.4f} s ({100 * prof['busy_share']:.2f}%); allocation "
+          f"(one flush) {prof['alloc_wall_s']:.3f} s, busy {prof['alloc_busy_s']:.4f} s "
+          f"({100 * prof['alloc_busy_share']:.2f}%, {prof['alloc_kernel_launches']} kernel launches); "
+          f"training, measurements and the rest {prof['train_wall_s']:.3f} s, busy "
+          f"{prof['train_busy_s']:.4f} s ({100 * prof['train_busy_share']:.2f}%)", flush=True)
+
+    # the kernel at the phase's launch shapes, against its plain version
+    report["kernel_cases"] = serving_kernel_cases(device, shapes)
+    return report, launches
+
+
+def fmt(xs) -> str:
+    return "[" + ", ".join(f"{x:.5g}" for x in xs) + "]"
 
 
 def main() -> int:
@@ -1763,8 +1977,12 @@ def main() -> int:
 
     # phase 15: the allocation service on the card
     serving, serving_launches = phase_serving(device)
+
+    # phase 16: the FedSem closed loop (FL-trained SemCom jobs over the service)
+    fedsem, fedsem_launches = phase_fedsem(device)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
-                         "exhaustive": oracle_launches, "serving": serving_launches}
+                         "exhaustive": oracle_launches, "serving": serving_launches,
+                         "fedsem": fedsem_launches}
 
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
@@ -1834,7 +2052,8 @@ def main() -> int:
             dict(build_s=build_s, flash_sass=flash_sass, cases=cases, solves=solves,
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
-                 oracle=oracle, serving=serving, record=record, card=smi), indent=1))
+                 oracle=oracle, serving=serving, fedsem=fedsem, record=record, card=smi),
+            indent=1, default=str))
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

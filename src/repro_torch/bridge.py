@@ -36,7 +36,8 @@ def weights_from_numpy(arrays: dict, device="cuda") -> Weights:
 
 
 def accuracy_from_numpy(arrays: dict, device="cuda") -> AccuracyFn:
-    """`AccuracyFn` from ``{"a", "b"}`` scalars or (B,) arrays."""
+    """`AccuracyFn` from ``{"a", "b"}`` scalars or (B,) arrays (e.g. the
+    reference's `fit_power_law` result, for a refit pushed into the port)."""
     dev = resolve_device(device)
     return AccuracyFn(_tensor(arrays["a"], dev), _tensor(arrays["b"], dev))
 
@@ -52,6 +53,24 @@ def allocation_to_numpy(alloc: Allocation) -> dict:
     return {
         k: getattr(alloc, k).detach().cpu().numpy() for k in ("f", "P", "X", "rho")
     }
+
+
+def ae_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The port's codec parameters (`semcom.init_params`' layout) from the
+    reference's pytree as numpy arrays: each layer's HWIO filter ``w``
+    becomes OIHW, its bias ``b`` stays as it is."""
+    dev = resolve_device(device)
+    return {
+        name: {"w": _tensor(np.transpose(layer["w"], (3, 2, 0, 1)), dev),
+               "b": _tensor(layer["b"], dev)}
+        for name, layer in tree.items()
+    }
+
+
+def images_from_numpy(x, device="cuda") -> torch.Tensor:
+    """An NHWC array (the reference's images, or a latent's noise draw) as
+    the port's NCHW float32 tensor."""
+    return _tensor(np.transpose(np.asarray(x), (0, 3, 1, 2)), resolve_device(device))
 
 
 def lm_params_from_numpy(tree: dict, cfg, device="cuda"):

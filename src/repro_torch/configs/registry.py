@@ -8,7 +8,8 @@ naming the ROADMAP.md §1 item that ports what a config needs (MoE and MLA
 layers, the frontends, and the configs listed in ``NOT_PORTED``).
 ``jamba_1_5_large_398b`` is the published config, with its 16 experts; the
 port runs its dense cut, ``CONFIG.scaled(n_experts=0, top_k=0)``.
-``fedsem_autoencoder`` is not an LM config and raises here.
+``fedsem_autoencoder`` is the paper's own codec: its config is a
+`repro_torch.semcom.AEConfig`, not an LM config.
 """
 from __future__ import annotations
 
@@ -31,8 +32,7 @@ ARCHS = (
     "fedsem_autoencoder",   # the paper's own model (not an LM config)
 )
 #: configs the port does not run yet, and the ROADMAP.md §1 item that ports
-#: each (consulted by `models.model.init_params`; ``fedsem_autoencoder`` by
-#: `get_config`)
+#: each (consulted by `models.model.init_params`)
 NOT_PORTED = {
     "arctic_480b": "item 12 (MoE and MLA)",
     "deepseek_v3_671b": "item 12 (MoE and MLA)",
@@ -40,7 +40,6 @@ NOT_PORTED = {
     "gemma2_9b": "item 11 (training and the remaining dense configs)",
     "hubert_xlarge": "item 11 (training and the remaining dense configs; audio frontend)",
     "pixtral_12b": "item 11 (training and the remaining dense configs; vision frontend)",
-    "fedsem_autoencoder": "item 10 (the FL and SemCom closed loop)",
 }
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
@@ -52,11 +51,8 @@ def canonical(name: str) -> str:
 
 
 def get_config(name: str) -> ModelConfig:
+    """An arch's config (``fedsem_autoencoder``: its `AEConfig`)."""
     name = canonical(name)
-    if name == "fedsem_autoencoder":
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md §1, {NOT_PORTED[name]}"
-        )
     if name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}; known: {', '.join(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")

@@ -2,16 +2,17 @@
 
 Counterpart of `repro.core`, with the same public names for the ported
 pieces; the paper's baselines are `core.baselines`, the exhaustive oracle
-`core.exhaustive`; warm starts are `ExtraStart` and `refine_with_start`.
-Not ported yet: scenario sharding (`core.distribute`, the ``mesh=``
-argument, ROADMAP.md §1 item 9) and `fit_power_law` (item 10).
+`core.exhaustive`; warm starts are `ExtraStart` and `refine_with_start`;
+scenario sharding (the ``mesh=`` argument) is `core.distribute`.
 """
-from .accuracy import AccuracyFn, default_accuracy, stack_accuracy
+from .accuracy import AccuracyFn, default_accuracy, fit_power_law, stack_accuracy
 from .allocator import (
     AllocatorConfig, AllocatorResult, ExtraStart, refine_with_start, sanitize_start,
     solve, solve_batch,
 )
+from .bits import tree_bits
 from .channel import sample_params, sample_params_batch, sample_request_stream
+from .distribute import pad_batch, scenario_mesh, shard_batch, slice_batch
 from .scoring import batch_objectives, candidate_objectives, scenario_objective
 from .types import (
     DEFAULT_BUCKETS, Allocation, ShapeBucket, SystemParams, Weights,
@@ -20,7 +21,8 @@ from .types import (
 )
 
 __all__ = [
-    "AccuracyFn", "default_accuracy", "stack_accuracy",
+    "AccuracyFn", "default_accuracy", "fit_power_law", "stack_accuracy", "tree_bits",
+    "pad_batch", "scenario_mesh", "shard_batch", "slice_batch",
     "AllocatorConfig", "AllocatorResult", "ExtraStart", "refine_with_start",
     "sanitize_start", "solve", "solve_batch",
     "sample_params", "sample_params_batch", "sample_request_stream",

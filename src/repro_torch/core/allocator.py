@@ -18,6 +18,11 @@ rows with one launch of the `fedsem_objective` kernel (`core.scoring`).
 Warm starts (`ExtraStart`, `refine_with_start`) lay out their candidates
 the same way: row ``b * C + c`` is scenario b from candidate c, one more
 eager pass per inner, scored together with the cold result in one launch.
+
+``solve_batch(mesh=...)`` and ``refine_with_start(mesh=...)`` split the
+scenario axis over a tuple of devices (`core.distribute.run_sharded`): each
+device solves its chunk with the same row layout, so sharding changes no
+answer.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from .accuracy import AccuracyFn, default_accuracy
+from .distribute import check_mesh, run_sharded
 from .p3 import solve_p3
 from .p5 import P5Config, r_min, solve_p5
 from .pgd import PGDConfig, power_given_x, solve_p4_pgd
@@ -315,6 +321,8 @@ def refine_with_start(
     acc: AccuracyFn,
     extra: ExtraStart,
     base: AllocatorResult,
+    *,
+    mesh=None,
 ) -> AllocatorResult:
     """Fold warm-start candidates into an already-solved batch.
 
@@ -334,9 +342,18 @@ def refine_with_start(
       masked and the first-occurrence ``argmin`` picks the base; selection
       is a gather over the stacked results, so that row is ``base`` bit for
       bit.
+
+    ``mesh`` shards the pass like `solve_batch`'s: the candidates and the
+    base result split with their scenarios (the sharded service's refine).
     """
     B = params.g.shape[0]
     dev = params.device
+    if mesh is not None:
+        weights, acc = (_per_scenario_tree(t, B, dev) for t in (weights, acc))
+        return run_sharded(
+            mesh, lambda p, w, a, e, r: refine_with_start(p, w, cfg, a, e, r),
+            params, weights, acc, extra, base,
+        )
     valid = _as_float(extra.valid, dev)
     leaves = [_as_float(x, dev) for x in (extra.f, extra.P, extra.X)]
     if valid.ndim == 1:                  # one candidate: a candidate axis of 1
@@ -432,13 +449,16 @@ def solve_batch(
     `refine_with_start` keeps the per-scenario better. ``None`` is exactly
     the cold solve.
 
-    ``mesh`` (scenario sharding) is not ported yet and raises
-    `NotImplementedError` (ROADMAP.md §1, item 9).
+    ``mesh`` optionally shards the scenario axis over devices (a
+    `core.distribute.scenario_mesh`, a tuple of `torch.device`s): the batch
+    is padded to a multiple of the mesh size by replicating the tail
+    scenario, each device solves its chunk (warm starts shard with their
+    scenarios), and the results come back to the params' device, sliced to
+    the unpadded batch. Rows are independent, so the hardened X equals the
+    unsharded solve's.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "scenario sharding (mesh=) is not ported yet: ROADMAP.md §1, item 9"
-        )
+        mesh = check_mesh(mesh)
     if cfg.inner not in INNERS:
         raise ValueError(f"AllocatorConfig.inner must be one of {INNERS}, got {cfg.inner!r}")
     if params_batch.g.ndim != 3:
@@ -464,9 +484,20 @@ def solve_batch(
                 "axis (repro_torch.serve.warmstart builds these from cache hits)."
             )
 
+    w, a = (_per_scenario_tree(t, b, dev) for t in (weights, acc))
+    if mesh is not None:
+        return run_sharded(
+            mesh, lambda p, w, a, e: _solve_rows(p, w, cfg, a, e),
+            params_batch, w, a, extra_starts,
+        )
+    return _solve_rows(params_batch, w, cfg, a, extra_starts)
+
+
+def _solve_rows(params, w, cfg, a, extra) -> AllocatorResult:
+    """The cold multi-start solve of a (B,) batch, then the warm refine pass
+    when ``extra`` holds starts; every leaf on the params' device."""
     with torch.no_grad():
-        w, a = (_per_scenario_tree(t, b, dev) for t in (weights, acc))
-        base = _multi_start(params_batch, w, cfg, a)
-        if extra_starts is None:
+        base = _multi_start(params, w, cfg, a)
+        if extra is None:
             return base
-        return refine_with_start(params_batch, w, cfg, a, extra_starts, base)
+        return refine_with_start(params, w, cfg, a, extra, base)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,24 +25,59 @@ def dbm_to_watt(dbm, device=None):
     return 10.0 ** ((torch.as_tensor(dbm, dtype=torch.float32, device=device) - 30.0) / 10.0)
 
 
-def tree_map(fn, tree, *rest):
-    """Apply ``fn`` to every tensor leaf of a (nested) dataclass.
+#: the leaves of a tree
+ARRAYS = (torch.Tensor, np.ndarray)
 
-    Non-tensor fields (the meta scalars) pass through from ``tree``. With
-    ``rest``, ``fn`` receives the matching leaves of every argument.
+
+def _is_tree(x) -> bool:
+    """Whether ``x`` is an array or a container the tree functions walk
+    (python scalars, the meta fields, are not)."""
+    return isinstance(x, (*ARRAYS, dict, list, tuple)) or dataclasses.is_dataclass(x)
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every array leaf (tensor or numpy array) of a tree.
+
+    A tree is an array, None, or a dataclass, NamedTuple, dict, list or
+    tuple of trees. A dataclass's non-tree fields (the meta scalars) and
+    None pass through from ``tree``. With ``rest``, ``fn`` receives the
+    matching leaves of every argument.
     """
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, ARRAYS):
         return fn(tree, *rest)
+    if tree is None:
+        return None
     if dataclasses.is_dataclass(tree):
-        changes = {}
-        for fld in dataclasses.fields(tree):
-            v = getattr(tree, fld.name)
-            if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v):
-                changes[fld.name] = tree_map(
-                    fn, v, *(getattr(r, fld.name) for r in rest)
-                )
+        changes = {
+            fld.name: tree_map(fn, getattr(tree, fld.name), *(getattr(r, fld.name) for r in rest))
+            for fld in dataclasses.fields(tree)
+            if _is_tree(getattr(tree, fld.name))
+        }
         return dataclasses.replace(tree, **changes)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     raise TypeError(f"tree_map: unsupported leaf type {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> list:
+    """The array leaves of a tree, in `tree_map`'s order (dicts by
+    insertion order)."""
+    if isinstance(tree, ARRAYS):
+        return [tree]
+    if tree is None:
+        return []
+    if dataclasses.is_dataclass(tree):
+        children = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+        return [x for c in children if _is_tree(c) for x in tree_leaves(c)]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    raise TypeError(f"tree_leaves: unsupported leaf type {type(tree).__name__}")
 
 
 #: the `SystemParams` fields that are tensors

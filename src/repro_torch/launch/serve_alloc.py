@@ -42,14 +42,17 @@ never-worse objectives (dominance), with cache hit/miss accounting in the
 summary. Under ``--driver real --smoke`` the equivalence replay re-injects
 the recorded per-request starts, so the exact-X gate covers warm runs too.
 
-``--shard`` (scenario sharding) is not ported yet and raises (ROADMAP.md §1,
-item 9).
+``--shard`` shards each flush over a scenario mesh (`core.distribute`):
+every CUDA device, or with ``--device cpu`` the one CPU device; each bucket
+then fills ``device count x --max-batch`` slots.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+
+import torch
 
 from ..core import DEFAULT_BUCKETS, AllocatorConfig
 from ..core.pgd import PGDConfig
@@ -187,8 +190,8 @@ def main() -> int:
     ap.add_argument(
         "--shard",
         action="store_true",
-        help="shard each flush over all local devices (scenario mesh): not "
-        "ported yet, ROADMAP.md §1 item 9",
+        help="shard each flush over a scenario mesh of every CUDA device "
+        "(the CPU alone with --device cpu); slots = devices x --max-batch",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -206,7 +209,9 @@ def main() -> int:
 
     buckets = fit_ladder(args, requests)
     cfg = build_config(args, buckets)
-    service = AllocService(cfg, device=args.device)
+    # the scenario mesh of --shard: every CUDA card, or the CPU alone
+    mesh = None if torch.device(args.device).type == "cuda" else [args.device]
+    service = AllocService(cfg, device=args.device, mesh=mesh)
     print(f"warming the solver cache for {len(set(sizes))} shapes ...")
     service.warmup(requests)
 
@@ -246,7 +251,8 @@ def main() -> int:
             by_id = {c.req_id: c for c in completions}
             starts = [by_id[i].warm_start for i in range(len(requests))]
         replay = run_load(
-            AllocService(replay_cfg, executables=service.executables, device=args.device),
+            AllocService(replay_cfg, executables=service.executables, device=args.device,
+                         mesh=mesh),
             requests,
             arrivals,
             warm_starts=starts,

@@ -18,9 +18,9 @@ by dominance, bit for bit cold when missing).
 Padding, co-batching, the kernel objective path and the real-clock driver
 are transparent: each request's hardened allocation matches a solo
 exact-shape solve, asserted in `tests/test_torch_serving.py`,
-`tests/test_torch_warmstart.py` and `tests/test_torch_serve_driver.py`.
-Scenario sharding (``ServeConfig.shard_batch``) is not ported yet
-(ROADMAP.md §1, item 9).
+`tests/test_torch_warmstart.py` and `tests/test_torch_serve_driver.py`;
+so is scenario sharding (``ServeConfig.shard_batch``), in
+`tests/test_torch_distribute.py`.
 """
 from .aio import AsyncAllocDriver
 from .batching import BatchPolicy, MicroBatcher, PendingRequest

@@ -270,11 +270,6 @@ class RealClockDriver:
                     f"admission queue full ({self.cfg.queue_capacity} waiting); "
                     "solver thread is behind — shed load or retry"
                 ) from None
-        if self.ladder is not None:
-            # observe only ADMITTED shapes (after the put): shed/rejected
-            # submits must not skew the learned mix toward traffic that was
-            # never served
-            self.ladder.observe(params.N, params.K)
         return fut
 
     def _cover_must_fit(self, must_fit) -> tuple[tuple[int, int], ...]:
@@ -325,10 +320,8 @@ class RealClockDriver:
             return                      # exact-shape service: nothing to swap
         counts = self.ladder.counts()
         if sum(counts.values()) < cfg.refit_min_samples:
-            # observe() runs on caller threads after the enqueue, so counts
-            # can trail admissions; retry next loop instead of consuming the
-            # check (bumping here could skip the only drift check a short
-            # stream ever gets)
+            # too few samples for a fit yet (refit_min_samples above
+            # refit_check_every); retry next loop instead of consuming the check
             return
         self._next_refit_check = self._admitted + cfg.refit_check_every
         waste = LadderLearner._waste_or_inf(counts, current)
@@ -410,6 +403,13 @@ class RealClockDriver:
         req_id = self.service.admit(prepared, now=t_enq)
         self._tickets[req_id] = fut
         self._admitted += 1
+        if self.ladder is not None:
+            # observe only ADMITTED shapes, here on the solver thread: shed
+            # or rejected submits must not skew the learned mix, and the
+            # drift check reads counts that hold every admission so far
+            # (counts that trailed the admissions could consume a check on
+            # a mix that lacked its newest shapes)
+            self.ladder.observe(prepared.params.N, prepared.params.K)
         return False
 
     def _admit_pending(self) -> bool:

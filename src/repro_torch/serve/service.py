@@ -34,6 +34,12 @@ own `AccuracyFn` at `prepare` (explicit ``accuracy=`` > per-tenant registry
 and solves and scores with ``acc_batched=True``, so co-batched tenants never
 see each other's model and a refit changes no cache key.
 
+With ``ServeConfig(shard_batch=True)`` the batch axis shards over a
+scenario mesh (`core.distribute`; every CUDA device by default): a bucket
+fills ``len(mesh) x max_batch`` slots, each device solves ``max_batch`` of
+them, the answers come back to the service's device, and the mesh is part
+of every cache key.
+
 The service is sans-IO: callers pass ``now`` timestamps and decide when to
 flush (`flush_full` after submits, `flush_due` on timer ticks, `drain` at
 shutdown), so a real clock (`serve.driver`) or a virtual one
@@ -65,6 +71,7 @@ from ..core import (
 )
 from ..core.accuracy import AccuracyFn, default_accuracy, stack_accuracy
 from ..core.allocator import refine_with_start, solve_batch
+from ..core.distribute import round_up, scenario_mesh
 from ..core.scoring import batch_objectives
 from ..core.types import DEFAULT_BUCKETS, ShapeBucket
 from ..device import resolve_device
@@ -90,8 +97,9 @@ class ServeConfig(NamedTuple):
     #: pad the batch axis to ``policy.max_batch`` slots so each bucket's
     #: solver sees one batch shape; False follows the observed batch size
     pad_batch: bool = True
-    #: shard the batch axis over a scenario mesh: not ported yet
-    #: (ROADMAP.md §1, item 9); True raises
+    #: shard the batch axis over a scenario mesh (`core.distribute`): a
+    #: bucket's flush fills ``len(mesh) x policy.max_batch`` slots and each
+    #: device solves ``max_batch`` of them
     shard_batch: bool = False
     #: score every flushed bucket batch in one `batch_objectives` call and
     #: report the eq. 13 value on each `Completion.objective`
@@ -137,20 +145,21 @@ class Completion(NamedTuple):
     warm_start: CacheEntry | tuple | None = None
 
 
-def _cold_program(cfg: AllocatorConfig):
+def _cold_program(cfg: AllocatorConfig, mesh):
     """The cold solver of one cache key: `solve_batch` with per-row weights
-    and accuracy fits."""
+    and accuracy fits, sharded over ``mesh`` unless it is None."""
     def run(pb, wb, accb):
-        return solve_batch(pb, wb, cfg, accb, weights_batched=True, acc_batched=True)
+        return solve_batch(pb, wb, cfg, accb, weights_batched=True, acc_batched=True, mesh=mesh)
     return run
 
 
-def _refine_program(cfg: AllocatorConfig):
+def _refine_program(cfg: AllocatorConfig, mesh):
     """The warm-refine pass of one cache key: the cold result plus the
-    flush's `ExtraStart` batch -> the per-scenario best."""
+    flush's `ExtraStart` batch -> the per-scenario best (sharded like the
+    cold solver)."""
     def run(pb, wb, accb, extra, base):
         with torch.no_grad():
-            return refine_with_start(pb, wb, cfg, accb, extra, base)
+            return refine_with_start(pb, wb, cfg, accb, extra, base, mesh=mesh)
     return run
 
 
@@ -167,23 +176,25 @@ class AllocService:
         cfg: ServeConfig = ServeConfig(),
         executables: dict[tuple, object] | None = None,
         device="cuda",
+        mesh=None,
     ):
         """``executables`` optionally shares a solver cache built by another
         service (the dict is used and extended in place); entries are keyed
-        by the allocator config, so services with other configs miss."""
-        if cfg.shard_batch:
-            raise NotImplementedError(
-                "ServeConfig.shard_batch (scenario sharding) is not ported yet: "
-                "ROADMAP.md §1, item 9"
-            )
+        by the allocator config and the mesh, so services with other configs
+        or another sharding miss. ``mesh`` is the scenario mesh of a
+        ``shard_batch`` service (default `scenario_mesh()`: every CUDA
+        device); requests and answers stay on ``device``."""
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.cfg = cfg
-        self.mesh = None
-        self._full_slots = cfg.policy.max_batch
-        self.batcher = MicroBatcher(cfg.policy)
+        # with shard_batch, policy.max_batch is the per-device batch: buckets
+        # fill (and pad) to len(mesh) x max_batch slots
+        self.mesh = scenario_mesh(mesh) if cfg.shard_batch else None
+        n_dev = len(self.mesh) if self.mesh is not None else 1
+        self._full_slots = cfg.policy.max_batch * n_dev
+        self.batcher = MicroBatcher(cfg.policy._replace(max_batch=self._full_slots))
         self.metrics = ServiceMetrics()
         self._executables = executables if executables is not None else {}
         #: all-tenants default A(rho); per-tenant overrides live in
@@ -342,8 +353,13 @@ class AllocService:
 
     def _slots(self, n_real: int) -> int:
         """Batch-axis slots for a flush of ``n_real`` requests: fixed at
-        ``max_batch`` with ``pad_batch``, else the observed size."""
-        return self._full_slots if self.cfg.pad_batch else n_real
+        ``len(mesh) x max_batch`` with ``pad_batch``, else the observed size
+        (rounded up to the mesh size when sharding)."""
+        if self.cfg.pad_batch:
+            return self._full_slots
+        if self.mesh is not None:
+            return round_up(n_real, len(self.mesh))
+        return n_real
 
     def _run(self, cache_key: tuple, make, *args):
         """Call the cached solver ``cache_key`` (made by ``make()`` on a miss)
@@ -366,11 +382,11 @@ class AllocService:
         solve seconds)."""
         cfg = self.cfg.allocator
         base = (key, slots, cfg, self.mesh)
-        res, seconds = self._run(base, lambda: _cold_program(cfg), pb, wb, accb)
+        res, seconds = self._run(base, lambda: _cold_program(cfg, self.mesh), pb, wb, accb)
         if extra is not None:
             n_cand = 1 if np.ndim(extra.valid) == 1 else int(np.shape(extra.valid)[1])
             res, refine_s = self._run(
-                base + ("warm-refine", n_cand), lambda: _refine_program(cfg),
+                base + ("warm-refine", n_cand), lambda: _refine_program(cfg, self.mesh),
                 pb, wb, accb, extra, res,
             )
             seconds += refine_s

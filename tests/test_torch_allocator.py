@@ -376,7 +376,7 @@ def test_inner_auto_keeps_the_better_of_both(batch3):
 
 def test_unported_options_raise():
     tp = stack_params([_scenario(0)[1]])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         solve_batch(tp, Weights.ones(), CHEAP, mesh=object())
     with pytest.raises(ValueError, match="inner"):
         solve_batch(tp, Weights.ones(), CHEAP._replace(inner="newton"))

@@ -705,3 +705,81 @@ def test_real_clock_driver_on_the_card_equals_its_virtual_replay(card):
     replay = run_load(AllocService(_serve_cfg(), svc.executables, device=card), requests,
                       [0.0] * len(requests))
     assert same_hardened_assignments(real, replay.completions)
+
+
+# ---------------------------------------------------------------------------
+# the FedSem closed loop and scenario sharding on the card
+# ---------------------------------------------------------------------------
+
+
+def _fl_setup(card):
+    from repro_torch.fl import FLConfig, sample_round_scenarios, serve_config_for
+    from repro_torch.launch.fedsem_e2e import SMOKE_ALLOCATOR
+    from repro_torch.serve import BatchPolicy
+
+    fl = FLConfig(n_clients=4, n_subcarriers=12, rounds=3, local_steps=2, scenario="hetero_classes")
+    serve = serve_config_for(SMOKE_ALLOCATOR, policy=BatchPolicy(max_batch=4, max_wait_s=0.02))
+    return SMOKE_ALLOCATOR, serve, sample_round_scenarios(3, fl, 1e4, device=card)
+
+
+@pytest.mark.cuda
+def test_service_backend_equals_planned_on_the_card(card):
+    """Each round padded into the (4, 16) bucket and 4 slots by the service
+    against all rounds as one unpadded batch: the same X on the card, and
+    every solve scored through the kernel (3 launches a solve, 4 a flush)."""
+    from repro_torch.core import Weights
+    from repro_torch.fl import PlannedBackend, ServiceBackend
+    from repro_torch.serve import AllocService
+
+    alloc, serve, scen = _fl_setup(card)
+    planned = PlannedBackend(alloc)
+    before = kernel.launches
+    planned.open(scen, Weights.ones(card))
+    assert kernel.launches - before == alloc.outer_iters + 1
+    served = ServiceBackend(AllocService(serve, device=card))
+    served.open(scen, Weights.ones(card))
+    for rnd in range(len(scen)):
+        a, b = planned.allocate(rnd), served.allocate(rnd)
+        assert torch.equal(a.X, b.X)
+        assert abs(float(a.rho) - float(b.rho)) <= 1e-6
+    assert kernel.launches - before == (alloc.outer_iters + 1) + len(scen) * (alloc.outer_iters + 2)
+
+
+@pytest.mark.cuda
+def test_semcom_jobs_cotenanted_equal_their_solo_runs_on_the_card(card):
+    """Two jobs in threads over one real-clock driver, each re-run alone on
+    a fresh virtual-clock service: the same losses, rhos, energies,
+    objectives and measurements, exactly."""
+    from repro_torch.launch import fedsem_e2e as e2e
+
+    _, serve, specs, rounds, ae, batch, eval_batch = e2e.harness_config(smoke=True)
+    jobs = [e2e.make_job(s, rounds, ae, batch, eval_batch, device=card) for s in specs]
+    co, _ = e2e.run_multijob(11, jobs, serve, {})
+    report = e2e.check_noninterference(11, jobs, co, serve, {})
+    assert report["ok"], report
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a scenario mesh of two devices")
+    return (torch.device("cuda", 0), torch.device("cuda", 1))
+
+
+@pytest.mark.cuda
+def test_sharded_solve_over_two_cards(two_cards):
+    """A batch of 5 on a two-card mesh (padded to 6, 3 a card): the
+    single-card X, the result back on the first card, and each card's
+    kernel launched for its own chunk."""
+    from repro_torch.core import Weights, solve_batch
+    from repro_torch.launch.fedsem_e2e import SMOKE_ALLOCATOR as alloc
+    from repro_torch.scenarios import get_family
+
+    pb = get_family("iid_rayleigh").sample_batch(2, 5, N=4, K=12, device=two_cards[0])
+    w = Weights.ones(two_cards[0])
+    single = solve_batch(pb, w, alloc)
+    before = kernel.launches
+    sharded = solve_batch(pb, w, alloc, mesh=two_cards)
+    assert kernel.launches - before == 2 * (alloc.outer_iters + 1)
+    assert sharded.alloc.X.device == two_cards[0]
+    assert torch.equal(sharded.alloc.X, single.alloc.X)

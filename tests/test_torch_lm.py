@@ -225,13 +225,9 @@ def test_init_params_follows_the_reference_law():
 @pytest.mark.parametrize("arch", sorted(registry.NOT_PORTED))
 def test_unported_archs_raise_naming_the_roadmap_item(arch):
     """An LM config the port does not run raises from `init_params`, before
-    anything is allocated (its config is plain data `get_config` returns);
-    the autoencoder, not an LM config, raises from `get_config`."""
+    anything is allocated (its config is plain data `get_config` returns)."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item \d+"):
-        if arch == "fedsem_autoencoder":
-            registry.get_config(arch)
-        else:
-            M.init_params(registry.get_config(arch), torch.Generator().manual_seed(0))
+        M.init_params(registry.get_config(arch), torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("arch", registry.list_archs())

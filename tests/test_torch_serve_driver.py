@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -298,6 +299,51 @@ def test_driver_auto_refit_on_drift_keeps_every_answer():
     with driver:
         done = [f.result(timeout=WAIT_S) for f in [driver.submit(p) for p in requests]]
     assert driver.auto_refits >= 1 and service.cfg.buckets != DEFAULT_BUCKETS
+    assert padded_area_waste([(p.N, p.K) for p in requests], service.cfg.buckets) == 0.0
+    assert same_hardened_assignments(done, _replay(service, requests))
+
+
+class _LaggingLadder(LadderLearner):
+    """A learner whose ``observe`` waits until the driver has admitted the
+    shape it records and then lags 50 ms (a preempted observer), and which
+    logs, at every read of its counts, their total beside the admissions."""
+
+    driver = None
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.reads = []
+
+    def observe(self, n, k, count=1):
+        while self.driver._admitted <= self.n_observed:
+            time.sleep(0.001)
+        time.sleep(0.05)
+        super().observe(n, k, count)
+
+    def counts(self):
+        out = super().counts()
+        self.reads.append((sum(out.values()), self.driver._admitted))
+        return out
+
+
+def test_drift_check_sees_every_admitted_shape():
+    """The drift check reads counts that hold every admitted shape even when
+    observing lags: the only drifted shape, last in the stream, still
+    triggers the refit (counts that trailed the admissions let a check
+    consume itself on the undrifted mix)."""
+    requests = _stream(7, sizes=((4, 8),)) + _stream(1, seed=8, sizes=((3, 8),))
+    service = AllocService(CFG, device="cpu")
+    ladder = _LaggingLadder(min_samples=1)
+    driver = RealClockDriver(
+        service,
+        cfg=DriverConfig(refit_waste_threshold=0.01, refit_check_every=4, refit_min_samples=4),
+        ladder=ladder,
+    )
+    ladder.driver = driver
+    with driver:
+        done = [f.result(timeout=WAIT_S) for f in [driver.submit(p) for p in requests]]
+    assert ladder.reads and all(seen == admitted for seen, admitted in ladder.reads)
+    assert driver.auto_refits == 1 and service.cfg.buckets != DEFAULT_BUCKETS
     assert padded_area_waste([(p.N, p.K) for p in requests], service.cfg.buckets) == 0.0
     assert same_hardened_assignments(done, _replay(service, requests))
 

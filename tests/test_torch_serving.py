@@ -238,11 +238,6 @@ def test_program_count_is_bounded():
     assert svc.metrics.cache_misses == len(keys)
 
 
-def test_shard_batch_raises_naming_item_9():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 9"):
-        AllocService(SERVE._replace(shard_batch=True), device="cpu")
-
-
 @pytest.mark.parametrize("cap,n", [(4096, 50), (16, 500), (1, 40)])
 def test_reservoir_samples_equal_the_references(cap, n):
     """Same seed, same stream: the same retained sample, count, mean, max
