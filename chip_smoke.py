@@ -201,14 +201,50 @@ the CPU in place of the card):
    (`torch.profiler`, device activity: the round with its allocation
    answered at once, then the allocation's flush alone; the round is their
    sum), and the kernel at the phase's launch shapes
-   (graph replay, bound, plain version).
+   (graph replay, bound, plain version);
+17. LM training (`repro_torch.launch.train`): (a) `qwen2_5_3b` at full width
+   (36 layers, d 2048, vocab 151936, bf16, 3.09 B parameters) from seed 0,
+   `build_train_step` at `train.py`'s defaults (B 8, S 128, lr 1e-3, clip
+   1.0), 5 steps on one fixed batch of tokens drawn from a seeded generator
+   (`TRAIN_REDUCED`). Gates: loss and grad norm finite every step; the loss
+   after the 5 steps below step 0's; no flash, WKV or selective-scan launch
+   during the steps (training takes the plain path, as the reference's);
+   step 0's loss within 1e-3 relative of the same loss through
+   `forward(use_kernel=True)` (the flash kernel, under no_grad; its 36
+   launches are a comparison, not the path); `loss_fn(use_kernel=True)`
+   with trainable leaves raises, naming the plain route. Printed: each
+   step's wall, the median warm step, tokens/s, ``mfu_bf16_dense`` (6 x
+   parameters x tokens / step time / 989 TFLOP/s), the peak memory, and the
+   last step's device busy share (`torch.profiler`). (b) the smoke variants
+   of `gemma2_2b`, `rwkv6_1_6b` and the Jamba dense cut on bigram-chain
+   batches: gradients with remat on and off equal bit for bit (deterministic
+   algorithms on for the comparison), then 3 steps with finite, falling
+   losses;
+18. federated LM fine-tuning (`repro_torch.launch.federated_lm`): (a) its
+   own computation, the smoke `qwen2_5_3b`, 4 clients, 8 rounds,
+   `PlannedBackend` at the reference's smoke allocator depth
+   (`FED_REDUCED`): the last round's loss below the first, every round's X
+   binary with each subcarrier owned once, the objective kernel launched
+   ``outer_iters + 1`` times per counted `solve_batch`; (b) one round of
+   `qwen2_5_3b` at full width (2 clients, one local SGD step on generator
+   tokens, compression on, the solved allocation's rho held at 0.4;
+   `FED_REDUCED`): every leaf of every upload (the 311 M-entry embedding
+   and the 811 M-entry stacked FFN leaves among them) is sparsified at rho
+   0.4 and keeps at most rho n + 1 entries above its threshold and at
+   least rho n - 1 at or above it, the aggregated parameters finite; then
+   float32 draws (no ties) of the embedding's and the largest stacked
+   leaf's sizes, sparsified at rho 0.3, keep exactly the entries at or
+   above their thresholds, within one of 0.3 n. The round's wall split
+   into the allocation, the sparsification and the rest, the leaves whose
+   threshold sits on a tie, and the peak memory are printed.
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
-and every other kernel never; the allocator paths (3, 13, 14, 15 and 16)
-launch the objective kernel and no other. Each path (3, 5 + 6, 8 + 9,
-11 + 12, 13, 14, 15 and 16) is driven with the kernels' launch counts set to 0
-just before it and read just after. With ``--profile``, one short solve
+and every other kernel never; the allocator paths (3, 13, 14, 15, 16 and 18)
+launch the objective kernel and no other; the training path (17) launches
+none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17 and 18) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -323,6 +359,30 @@ FEDSEM_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the referenc
                   "allocator, AllocatorConfig(inner='pgd', outer_iters=2, "
                   "pgd=PGDConfig(steps=60)); about 50 allocations at default depth would take "
                   "about 18 s each")
+
+#: phase 17: the full-width training run (`launch.train`'s defaults: B 8,
+#: S 128, lr 1e-3, clip 1.0), and the smoke variants trained beside it
+TRAIN_ARCH = "qwen2_5_3b"
+TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_CLIP, TRAIN_STEPS = 8, 128, 1e-3, 1.0, 5
+TRAIN_SMOKE = (("gemma2_2b", {}), ("rwkv6_1_6b", {}),
+               ("jamba_1_5_large_398b", dict(n_experts=0, top_k=0)))
+#: step 0's loss against the same loss through the flash kernel (bf16)
+TRAIN_KERNEL_RTOL = 1e-3
+TRAIN_REDUCED = ("tokens: uniform draws from a seeded torch.Generator, not the bigram chain: "
+                 "its (vocab, vocab) float32 table is 92 GB at vocab 151936; one fixed batch, "
+                 "so 5 steps overfit it")
+#: phase 18: `launch.federated_lm`'s defaults, and the full-width round
+FED_ARCH, FED_ROUNDS, FED_CLIENTS = "qwen2_5_3b", 8, 4
+FED_FULL_CLIENTS, FED_FULL_SEQ = 2, 64
+#: the full-width round's rho (its solve answers 1), and the fraction the
+#: float32 probe leaves are sparsified at
+FED_FULL_RHO, FED_PROBE_RHO = 0.4, 0.3
+FED_REDUCED = ("allocator depth, both parts: the example's AllocatorConfig(inner='pgd') -> the "
+               "reference's smoke allocator (2 outer iterations, 60 PGD steps): at default depth "
+               "part (a)'s one solve took 28.6 s, and would take about twice that on a slower "
+               "host; the full-width round: tokens uniform from a seeded torch.Generator (the "
+               "bigram table would be 92 GB), 2 clients, 1 round, 1 local SGD step, the solved "
+               "allocation's rho (1) held at 0.4 so that every leaf is sparsified below 1")
 
 
 class SmokeFailure(RuntimeError):
@@ -1069,7 +1129,7 @@ def phase_lm(device, arch, S, cut):
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed))
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
+    n_params = params_of(params.tree)
     init_s = time.perf_counter() - t0
     print(f"{arch}: {n_params / 1e9:.4f} B parameters in bf16 on the card "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), init {init_s:.2f} s", flush=True)
@@ -1196,16 +1256,24 @@ def zero_launches():
     kernel.launches = flash_kernel.launches = wkv_kernel.launches = scan_kernel.launches = 0
 
 
-def only_objective_launched(what: str) -> int:
-    """The end of an allocator path: its objective-kernel launches; no LM
-    kernel may have launched."""
-    from repro_torch.kernels.fedsem_objective import kernel
+def check_no_lm_kernel(what: str) -> None:
+    """No flash, WKV or selective-scan launch since `zero_launches` (the
+    allocator paths, and training, which takes the plain sequence mixers
+    as the reference's does)."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 
     check(flash_kernel.launches == wkv_kernel.launches == scan_kernel.launches == 0,
           f"{what} launched the flash, the WKV or the selective-scan kernel")
+
+
+def only_objective_launched(what: str) -> int:
+    """The end of an allocator path: its objective-kernel launches; no LM
+    kernel may have launched."""
+    from repro_torch.kernels.fedsem_objective import kernel
+
+    check_no_lm_kernel(what)
     return kernel.launches
 
 
@@ -1866,6 +1934,366 @@ def phase_fedsem(device):
     return report, launches
 
 
+def params_of(tree) -> int:
+    """The parameters of an LM tree, counted from its tensors."""
+    from repro_torch.core.types import tree_leaves
+
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def train_batch(gen, vocab: int, B: int, S: int) -> dict:
+    """One (B, S) batch of tokens drawn uniformly from ``gen`` (labels: the
+    tokens shifted by one)."""
+    import torch
+
+    toks = torch.randint(0, vocab, (B, S + 1), generator=gen, device=gen.device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def profile_step(step_fn, state, batch) -> dict:
+    """One train step under `torch.profiler` (device activity): its wall
+    time and the device's busy time and share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_dev) / 1e6
+    check(busy > 0, "the profiled train step saw no device time")
+    products = sum(e.self_device_time_total for e in on_dev
+                   if any(m in e.key.lower() for m in PRODUCT_MARKS)) / 1e6
+    top = sorted(on_dev, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return state, float(metrics["loss"]), dict(
+        wall_s=wall, busy_s=busy, busy_share=busy / wall, products_s=products,
+        launches=sum(e.count for e in on_dev),
+        top=[(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def phase_train(device):
+    """Phase 17: (a) Qwen2.5-3B at full width trains `TRAIN_STEPS` steps of
+    `launch.train.build_train_step` on one batch, its step-0 loss held
+    against the flash kernel's forward; (b) the smoke variants of the other
+    trained families, remat on against off."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.models.config import smoke_variant
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.optim.optimizers import value_and_grad
+
+    # (a) the full-width model
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = T.init_state(cfg, torch.Generator(device).manual_seed(0), TRAIN_LR)
+    n_params = params_of(state.params)
+    batch = train_batch(torch.Generator(device).manual_seed(1), cfg.vocab, TRAIN_B, TRAIN_S)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the loss through the flash kernel (forward only, no grad): the kernel
+    # and the training path must compute one function at full width
+    n0 = flash_kernel.launches
+    with torch.no_grad():
+        logits, _ = M.forward(state.params, cfg, batch, use_kernel=True)
+        kernel_loss = float(cross_entropy(logits, batch["labels"]))
+        del logits
+    check(flash_kernel.launches - n0 == cfg.n_layers,
+          f"train: the kernel forward launched flash {flash_kernel.launches - n0} times, want "
+          f"{cfg.n_layers}")
+
+    step_fn = T.build_train_step(cfg, lr=TRAIN_LR, clip=TRAIN_CLIP)
+    zero_launches()                                   # the training path starts here
+    losses, norms, walls = [], [], []
+    for i in range(TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    state, last_loss, prof = profile_step(step_fn, state, batch)
+    losses.append(last_loss)
+    with torch.no_grad():
+        after = float(M.loss_fn(state.params, cfg, batch))
+    peak = torch.cuda.max_memory_allocated(device)
+    check_no_lm_kernel("the full-width train steps")         # ... and ends here
+    check(all(map(math.isfinite, losses + norms + [after])),
+          f"train: a non-finite loss or grad norm: {losses}, {norms}, {after}")
+    check(after < losses[0], f"train: the loss after {TRAIN_STEPS} steps ({after}) is not below "
+          f"step 0's ({losses[0]})")
+    rel = abs(kernel_loss - losses[0]) / abs(losses[0])
+    check(rel <= TRAIN_KERNEL_RTOL, f"train: step 0's loss {losses[0]} and the flash kernel's "
+          f"{kernel_loss} differ by {rel:.3g} relative (> {TRAIN_KERNEL_RTOL})")
+    try:
+        value_and_grad(lambda p: M.loss_fn(p, cfg, batch, use_kernel=True), state.params)
+    except RuntimeError as err:
+        check("use_kernel=False" in str(err), f"train: the refusal does not name the plain route: {err}")
+    else:
+        raise SmokeFailure("train: loss_fn(use_kernel=True) with trainable leaves did not raise")
+    check_no_lm_kernel("the refused kernel loss")
+    step_s = sorted(walls[1:])[len(walls[1:]) // 2]         # the median warm step
+    tokens = TRAIN_B * TRAIN_S
+    report = dict(arch=TRAIN_ARCH, reduced=TRAIN_REDUCED, params=n_params, batch=TRAIN_B,
+                  seq=TRAIN_S, lr=TRAIN_LR, clip=TRAIN_CLIP, init_s=init_s, losses=losses,
+                  grad_norms=norms, loss_after=after, kernel_loss=kernel_loss,
+                  kernel_loss_rel=rel, step_walls_s=walls, step_s=step_s,
+                  tokens_per_s=tokens / step_s,
+                  mfu_bf16_dense=6.0 * n_params * tokens / step_s / BF16_FLOPS_PER_S,
+                  peak_memory_bytes=peak, profiled_step=prof)
+    print(f"train {TRAIN_ARCH}: {n_params / 1e9:.4f} B parameters (bf16), B {TRAIN_B}, S "
+          f"{TRAIN_S}; losses {fmt(losses)} -> {after:.5g} after {TRAIN_STEPS} steps; grad norms "
+          f"{fmt(norms)}; flash-kernel loss {kernel_loss:.6g} vs step 0's {losses[0]:.6g} (rel "
+          f"{rel:.3g}); step walls {fmt(walls)} s, median warm step {1e3 * step_s:.1f} ms, "
+          f"{tokens / step_s:.1f} tokens/s, mfu_bf16_dense {100 * report['mfu_bf16_dense']:.2f}% "
+          f"(6 N tokens / step / 989 TFLOP/s); peak memory {peak / 2**30:.2f} GiB; profiled step "
+          f"{1e3 * prof['wall_s']:.1f} ms, device busy {1e3 * prof['busy_s']:.1f} ms "
+          f"({100 * prof['busy_share']:.2f}%; matrix products {1e3 * prof['products_s']:.1f} ms; "
+          f"{prof['launches']} launches; top {prof['top']})", flush=True)
+    del state, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # (b) the smoke variants: bigram batches, remat on against off
+    report["smoke"] = {}
+    for arch, cut in TRAIN_SMOKE:
+        scfg = smoke_variant(get_config(arch)).scaled(**cut)
+        gen = torch.Generator(device).manual_seed(2)
+        sstate = T.init_state(scfg, gen, TRAIN_LR)
+        stream = token_stream(gen, scfg.vocab, TRAIN_B, TRAIN_S)
+        batches = [next(stream) for _ in range(3)]
+        batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in batches]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            grads = [value_and_grad(lambda p: M.loss_fn(p, scfg, batches[0], remat=r), sstate.params)[1]
+                     for r in (True, False)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])))
+        del grads
+        sstep = T.build_train_step(scfg, lr=TRAIN_LR, clip=TRAIN_CLIP)
+        slosses = []
+        t1 = time.perf_counter()
+        for b in batches:
+            sstate, m = sstep(sstate, b)
+            slosses.append(float(m["loss"]))
+        wall = time.perf_counter() - t1
+        check_no_lm_kernel(f"the {arch} smoke train steps")
+        check(same, f"train {arch} smoke: remat on and off give different gradients")
+        check(all(map(math.isfinite, slosses)) and slosses[-1] < slosses[0],
+              f"train {arch} smoke: losses {slosses} not finite and decreasing")
+        report["smoke"][arch] = dict(cut=cut, losses=slosses, remat_equal=same, wall_s=wall)
+        print(f"train {arch} smoke: losses {fmt(slosses)} over 3 steps ({wall:.2f} s); remat on == "
+              f"off: {same}", flush=True)
+    return report
+
+
+class KeptShares:
+    """Wrap `fl.federated.magnitude_quantile` to record, for each leaf of
+    every upload, its size, how many entries lie above and at its
+    threshold, and the quantile q asked for; and `topk_sparsify` to time the
+    sparsification (ending in a synchronize)."""
+
+    def __init__(self, federated):
+        import torch
+
+        self.federated, self.rows, self.seconds = federated, [], 0.0
+        self.quantile, self.topk = federated.magnitude_quantile, federated.topk_sparsify
+
+        def quantile(a, q):
+            t = self.quantile(a, q)
+            self.rows.append((a.numel(), int(torch.sum(a > t)), int(torch.sum(a >= t)), float(q)))
+            return t
+
+        def topk(update, frac):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.topk(update, frac)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        federated.magnitude_quantile, federated.topk_sparsify = quantile, topk
+
+    def restore(self):
+        self.federated.magnitude_quantile, self.federated.topk_sparsify = self.quantile, self.topk
+
+
+def phase_federated_lm(device):
+    """Phase 18: (a) `launch.federated_lm`'s own computation (the smoke
+    Qwen2.5-3B, 4 clients, 8 rounds, `PlannedBackend` at the smoke
+    allocator depth), every solve's objective-kernel launches counted; (b)
+    one round of Qwen2.5-3B at full width (2 clients, one local SGD step,
+    compression on), every leaf of every upload sparsified at rho."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.fl import PlannedBackend, alloc_backend, federated, run_fl
+    from repro_torch.launch import federated_lm
+    from repro_torch.launch import fedsem_e2e as e2e
+    from repro_torch.models import model as M
+    from repro_torch.models.config import smoke_variant
+
+    def recorded(backend, rho=None):
+        """``backend`` with its allocations and its open + allocate wall kept;
+        with ``rho``, each allocation's rho replaced by it."""
+        seen = dict(allocs=[], alloc_s=0.0, solved_rho=[])
+        open_, allocate = backend.open, backend.allocate
+
+        def timed(fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            seen["alloc_s"] += time.perf_counter() - t0
+            return out
+
+        def answer(rnd):
+            a = timed(allocate, rnd)
+            seen["solved_rho"].append(float(a.rho))
+            if rho is not None:
+                a = dataclasses.replace(a, rho=torch.full_like(a.rho, rho))
+            seen["allocs"].append(a)
+            return a
+        backend.open = lambda scenarios, weights: timed(open_, scenarios, weights)
+        backend.allocate = answer
+        return backend, seen
+
+    # (a) the example's computation
+    cfg = smoke_variant(get_config(FED_ARCH))
+    fl_cfg = federated_lm.fl_config(FED_ROUNDS, FED_CLIENTS)
+    cut = e2e.SMOKE_ALLOCATOR                         # FED_REDUCED
+    per_solve = cut.outer_iters + 1                   # the trace entries and the selection
+    backend, seen = recorded(PlannedBackend(cut))
+    counts = collections.Counter()
+    patch = Counting(counts, "solve", alloc_backend, "solve_batch")
+    zero_launches()                                   # the federated LM path starts here
+    t0 = time.perf_counter()
+    try:
+        _, hist = federated_lm.run(cfg, fl_cfg, device=device, backend=backend)
+    finally:
+        patch.restore()
+    wall = time.perf_counter() - t0
+    launches = only_objective_launched("the federated LM run")     # ... and ends here
+    losses = [h.loss for h in hist]
+    check(counts["solve"] > 0 and launches == per_solve * counts["solve"],
+          f"federated LM: {launches} kernel launches, {per_solve} x {counts['solve']} solves expected")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"federated LM: the loss did not fall: {losses}")
+    for rnd, a in enumerate(seen["allocs"]):
+        check(bool(((a.X == 0) | (a.X == 1)).all()) and bool((a.X.sum(dim=-2) == 1).all()),
+              f"federated LM round {rnd}: X is not binary with every subcarrier owned once")
+    check(len(seen["allocs"]) == FED_ROUNDS, f"federated LM: {len(seen['allocs'])} allocations")
+    report = dict(arch=FED_ARCH, reduced=FED_REDUCED, rounds=FED_ROUNDS, clients=FED_CLIENTS,
+                  losses=losses,
+                  rho=[h.rho for h in hist], energy=[h.energy for h in hist],
+                  t_fl=[h.t_fl for h in hist], solves=counts["solve"], launches=launches,
+                  wall_s=wall, alloc_s=seen["alloc_s"])
+    print(f"federated LM ({FED_ARCH} smoke, {FED_CLIENTS} clients, {FED_ROUNDS} rounds): losses "
+          f"{fmt(losses)}; rho {fmt(report['rho'])}; energy {fmt(report['energy'])} J; "
+          f"{launches} objective-kernel launches = {per_solve} x {counts['solve']} solves; wall "
+          f"{wall:.2f} s, allocation {seen['alloc_s']:.2f} s", flush=True)
+
+    # (b) one round at full width, the solved allocation's rho held at
+    # FED_FULL_RHO (the solve answers rho 1 here, where every leaf's
+    # threshold is its minimum and every entry stays)
+    full = get_config(FED_ARCH)
+    torch.cuda.empty_cache()
+    params = M.init_params(full, torch.Generator(device).manual_seed(0)).tree
+    torch.cuda.synchronize()
+    full_cfg = fl_cfg._replace(rounds=1, n_clients=FED_FULL_CLIENTS,
+                               n_subcarriers=4 * FED_FULL_CLIENTS, local_steps=1)
+    backend, seen = recorded(PlannedBackend(cut), rho=FED_FULL_RHO)
+    kept = KeptShares(federated)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    try:
+        out, hist = run_fl(
+            0, params, lambda p, b, gen: M.loss_fn(p, full, b),
+            lambda gen, i: train_batch(gen, full.vocab, federated_lm.BATCH, FED_FULL_SEQ),
+            full_cfg, backend=backend)
+        finite = all(bool(torch.all(torch.isfinite(x))) for x in tree_leaves(out))
+        torch.cuda.synchronize()
+    finally:
+        kept.restore()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    full_launches = only_objective_launched("the full-width FL round")
+    check(full_launches == cut.outer_iters + 1, f"full-width FL round: {full_launches} kernel "
+          f"launches, {cut.outer_iters + 1} expected (one solve)")
+    check(finite, "full-width FL round: the aggregated parameters are not finite")
+    n_leaves = len(tree_leaves(params))
+    check(len(kept.rows) == FED_FULL_CLIENTS * n_leaves,
+          f"full-width FL round: {len(kept.rows)} leaves sparsified, want {FED_FULL_CLIENTS} x {n_leaves}")
+    rho = hist[0].rho
+    check(abs(rho - FED_FULL_RHO) < 1e-7 and all(q == 1.0 - rho for *_, q in kept.rows),
+          f"full-width FL round: rho {rho}, not {FED_FULL_RHO}")
+    bad = [(n, gt, ge) for n, gt, ge, q in kept.rows
+           if not (gt <= (1.0 - q) * n + 1 and ge >= (1.0 - q) * n - 1)]
+    check(not bad, f"full-width FL round: leaves not sparsified at rho {rho}: {bad[:4]}")
+    # leaves whose threshold sits on a tie (most bf16 updates round to 0):
+    # every entry at the threshold stays, as in the reference
+    tied = sum(ge - gt > 1 for _, gt, ge, _ in kept.rows)
+    biggest = max(kept.rows)
+    # untied float32 leaves of the embedding's and the largest stacked
+    # leaf's sizes, sparsified at FED_PROBE_RHO, keep rho n entries each
+    del out
+    probes = []
+    for seed, shape in enumerate({tuple(x.shape) for x in (params["embed"],
+                                                           max(tree_leaves(params), key=torch.numel))}):
+        probe = KeptShares(federated)
+        draw = torch.randn(shape, generator=torch.Generator(device).manual_seed(3 + seed),
+                           device=device)
+        try:
+            sparse = federated.topk_sparsify({"w": draw}, FED_PROBE_RHO)["w"]
+        finally:
+            probe.restore()
+        (n, gt, ge, q), = probe.rows
+        kept_now = int(torch.count_nonzero(sparse))
+        check(gt <= FED_PROBE_RHO * n + 1 and ge >= FED_PROBE_RHO * n - 1 and kept_now == ge,
+              f"full-width FL round: a float32 leaf of {n} entries at rho {FED_PROBE_RHO}: {gt} "
+              f"above and {ge} at or above the threshold, {kept_now} kept")
+        probes.append(dict(shape=list(shape), entries=n, above=gt, at_or_above=ge,
+                           kept_nonzero=kept_now, seconds=probe.seconds))
+        del draw, sparse
+    report["full"] = dict(arch=FED_ARCH, params=params_of(params),
+                          clients=FED_FULL_CLIENTS,
+                          seq=FED_FULL_SEQ, batch=federated_lm.BATCH, loss=hist[0].loss, rho=rho,
+                          solved_rho=seen["solved_rho"], leaves=n_leaves, tied_leaves=tied,
+                          largest_leaf=biggest[0], wall_s=wall,
+                          alloc_s=seen["alloc_s"], rest_s=wall - seen["alloc_s"],
+                          peak_memory_bytes=peak, launches=full_launches,
+                          sparsify_s=kept.seconds, probe_rho=FED_PROBE_RHO, probes=probes,
+                          kept_share_range=[min(ge / n for n, _, ge, _ in kept.rows),
+                                            max(gt / n for n, gt, _, _ in kept.rows)])
+    print(f"federated LM full width ({FED_ARCH}, {report['full']['params'] / 1e9:.4f} B, "
+          f"{FED_FULL_CLIENTS} clients, 1 local step, batch {federated_lm.BATCH} x {FED_FULL_SEQ}): "
+          f"loss {hist[0].loss:.5g}, rho {rho:.6g} (solved {fmt(seen['solved_rho'])}); "
+          f"{len(kept.rows)} uploads' leaves sparsified at rho, {tied} with their threshold on a "
+          f"tie (largest {biggest[0]} entries: {biggest[1]} above, {biggest[2]} at or above the "
+          f"threshold); round {wall:.2f} s = allocation {seen['alloc_s']:.2f} s + the rest "
+          f"{wall - seen['alloc_s']:.2f} s (the sparsification {kept.seconds:.2f} s of it); "
+          + "; ".join(f"a float32 leaf of {pr['entries']} entries at rho {FED_PROBE_RHO}: "
+                      f"{pr['kept_nonzero']} kept, {pr['above']} above and {pr['at_or_above']} at "
+                      f"or above the threshold ({pr['seconds']:.2f} s)" for pr in probes)
+          + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    return report, launches + full_launches
+
+
 def fmt(xs) -> str:
     return "[" + ", ".join(f"{x:.5g}" for x in xs) + "]"
 
@@ -1980,9 +2408,14 @@ def main() -> int:
 
     # phase 16: the FedSem closed loop (FL-trained SemCom jobs over the service)
     fedsem, fedsem_launches = phase_fedsem(device)
+    # phase 17: LM training (Qwen2.5-3B at full width; the smoke families)
+    training = phase_train(device)
+
+    # phase 18: federated LM fine-tuning over the allocator
+    fedlm, fedlm_launches = phase_federated_lm(device)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
                          "exhaustive": oracle_launches, "serving": serving_launches,
-                         "fedsem": fedsem_launches}
+                         "fedsem": fedsem_launches, "federated_lm": fedlm_launches}
 
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
@@ -2052,7 +2485,8 @@ def main() -> int:
             dict(build_s=build_s, flash_sass=flash_sass, cases=cases, solves=solves,
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
-                 oracle=oracle, serving=serving, fedsem=fedsem, record=record, card=smi),
+                 oracle=oracle, serving=serving, fedsem=fedsem, training=training,
+                 federated_lm=fedlm, record=record, card=smi),
             indent=1, default=str))
     print(json.dumps(record))
     print(smi[0])

@@ -73,43 +73,72 @@ def images_from_numpy(x, device="cuda") -> torch.Tensor:
     return _tensor(np.transpose(np.asarray(x), (0, 3, 1, 2)), resolve_device(device))
 
 
-def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
-    """The port's `models.model.LM` from the reference's parameter pytree.
+def lm_tree_from_numpy(tree: dict, cfg, device="cuda", dtype=None) -> dict:
+    """The port's LM tree (``models.model.LM.tree``, laid out as the
+    reference's) from the reference's parameter pytree, or from a pytree
+    laid out like it (an optimizer's moments).
 
     ``tree`` is `repro.models.model.init_params`'s pytree as numpy arrays:
     ``embed``, ``final_ln``, optional ``head``, and ``stages[name]["b{j}"]``
-    whose leaves carry a leading period axis. Layer ``offset + period *
-    pattern_len + j`` of the port takes period ``period`` of block ``b{j}``.
-    Arrays go through float32 (exact for bfloat16, which numpy holds as
-    ``ml_dtypes.bfloat16``) and then to the config's dtype, except the Mamba
+    whose leaves carry a leading period axis. Arrays go through float32
+    (exact for bfloat16, which numpy holds as ``ml_dtypes.bfloat16``) and
+    then to ``dtype``; with None, to the config's dtype, except the Mamba
     leaves the reference keeps in float32 (`models.mamba.FLOAT32_LEAVES`),
     which stay float32 in a bfloat16 model.
     """
     from .models.layers import dtype_of
     from .models.mamba import leaf_dtype
-    from .models.model import LM, check_ported
+    from .models.model import check_ported
 
     check_ported(cfg)
     dev = resolve_device(device)
-    dt = dtype_of(cfg)
-
-    def tensor(x, dtype=dt):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=dtype)
+    dt = dtype_of(cfg) if dtype is None else dtype
 
     def convert(node, name=None, mamba=False):
         if isinstance(node, dict):
             return {k: convert(v, k, mamba or k == "mamba") for k, v in node.items()}
-        return tensor(node, leaf_dtype(name, dt) if mamba else dt)
+        to = leaf_dtype(name, dt) if mamba and dtype is None else dt
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=dev, dtype=to)
 
-    layers = []
-    for name, n_periods, _moe in cfg.stages():
-        stage = convert(tree["stages"][name])
-        for period in range(n_periods):
-            for j in range(cfg.pattern_len):
-                block = stage[f"b{j}"]
-                layers.append({
-                    k: ({kk: vv[period] for kk, vv in v.items()} if isinstance(v, dict) else v[period])
-                    for k, v in block.items()
-                })
-    head = tensor(tree["head"]) if "head" in tree else None
-    return LM(cfg, tensor(tree["embed"]), tensor(tree["final_ln"]), layers, head)
+    keys = ("embed", "final_ln", "head", "stages")
+    return {k: convert(tree[k]) for k in keys if k in tree}
+
+
+def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The port's `models.model.LM` from the reference's parameter pytree:
+    layer ``offset + period * pattern_len + j`` takes period ``period`` of
+    block ``b{j}`` (the `LM` over `lm_tree_from_numpy`'s tree)."""
+    from .models.model import LM
+
+    return LM(cfg, lm_tree_from_numpy(tree, cfg, device))
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The reference's parameter pytree from the port's `LM` or its tree
+    (or a tree laid out like it: gradients, moments), as float32 numpy
+    arrays (exact for bfloat16): the inverse of `lm_params_from_numpy`, for
+    comparing leaf by leaf."""
+    from .models.model import LM
+
+    tree = params.tree if isinstance(params, LM) else params
+
+    def arr(node):
+        if isinstance(node, dict):
+            return {k: arr(v) for k, v in node.items()}
+        return node.detach().float().cpu().numpy()
+
+    return arr(tree)
+
+
+def opt_state_from_numpy(state, cfg, device="cuda"):
+    """The port's `optim.OptState` from the reference's (``step``, and the
+    moments ``mu``/``nu`` laid out like its parameter pytree, as numpy
+    arrays; None for an optimizer without them): the step as an int32 host
+    scalar (as the port's ``init`` makes it), the moments as float32 tree
+    views on ``device`` (`lm_tree_from_numpy`)."""
+    from .optim.optimizers import OptState
+
+    dev = resolve_device(device)
+    moments = lambda t: None if t is None else lm_tree_from_numpy(t, cfg, dev, torch.float32)
+    return OptState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+                    mu=moments(state.mu), nu=moments(state.nu))

@@ -36,10 +36,10 @@ ARCHS = (
 NOT_PORTED = {
     "arctic_480b": "item 12 (MoE and MLA)",
     "deepseek_v3_671b": "item 12 (MoE and MLA)",
-    "starcoder2_3b": "item 11 (training and the remaining dense configs)",
-    "gemma2_9b": "item 11 (training and the remaining dense configs)",
-    "hubert_xlarge": "item 11 (training and the remaining dense configs; audio frontend)",
-    "pixtral_12b": "item 11 (training and the remaining dense configs; vision frontend)",
+    "starcoder2_3b": "item 11b (the remaining dense configs, frontends and meshes)",
+    "gemma2_9b": "item 11b (the remaining dense configs, frontends and meshes)",
+    "hubert_xlarge": "item 11b (the remaining dense configs, frontends and meshes; audio frontend)",
+    "pixtral_12b": "item 11b (the remaining dense configs, frontends and meshes; vision frontend)",
 }
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}

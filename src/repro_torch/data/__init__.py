@@ -1,1 +1,1 @@
-"""Synthetic data of the port (`synthetic.image_batch`)."""
+"""Synthetic data of the port (`synthetic`: images, token streams, client shares)."""

@@ -29,7 +29,7 @@ import torch
 from ..core import AllocatorConfig, AllocatorResult, SystemParams, Weights, tree_bits
 from ..core.system import report
 from ..core.types import tree_leaves, tree_map
-from ..optim.optimizers import sgd
+from ..optim.optimizers import sgd, value_and_grad
 from ..scenarios import generator, get_family
 from .alloc_backend import AllocationBackend, PlannedBackend
 
@@ -97,25 +97,40 @@ def plan_allocations(
     return backend.sys_batch, backend.result
 
 
+def magnitude_quantile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """The ``q`` quantile of the flat tensor ``a``, linearly interpolated in
+    `jnp.quantile`'s arithmetic (``method="linear"``): the rank q (n - 1) in
+    float32 with n itself rounded to float32, the order statistics at its
+    floor and ceil, ``lo (1 - w) + hi w`` in float32, cast to ``a``'s type.
+
+    Both order statistics are read from one sort, which takes any length
+    (`torch.quantile` raises above 2^24 elements, and a full-width LM's
+    leaves are larger: Qwen2.5-3B's embedding has 311 M) and runs on the
+    whole card (`torch.kthvalue` selects in a single thread block there)."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    n = a.numel()
+    n_f = f32(float(n))
+    pos = f32(q) * (n_f - 1.0)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w_high = pos - low
+    w_low = 1.0 - w_high
+    ordered = torch.sort(a).values
+    stat = lambda r: ordered[int(torch.clamp(r, 0.0, n_f - 1.0))].float()
+    lo, hi = stat(low), stat(high)
+    return (lo * w_low.to(a.device) + hi * w_high.to(a.device)).to(a.dtype)
+
+
 def topk_sparsify(update, frac):
     """Keep the largest-|.| ``frac`` of entries per leaf (rho-compression):
-    a per-leaf magnitude threshold at the (1 - frac) quantile, linearly
-    interpolated as `jnp.quantile` does; entries at or above it stay."""
+    a per-leaf magnitude threshold at the (1 - frac) quantile
+    (`magnitude_quantile`); entries at or above it stay."""
+    q = min(max(1.0 - float(frac), 0.0), 1.0)
 
     def leaf_q(u):
-        q = min(max(1.0 - float(frac), 0.0), 1.0)
-        qt = torch.quantile(torch.abs(u.reshape(-1)), q, interpolation="linear")
-        return torch.where(torch.abs(u) >= qt, u, 0.0)
+        mag = torch.abs(u)
+        return torch.where(mag >= magnitude_quantile(mag.reshape(-1), q), u, 0.0)
 
     return tree_map(leaf_q, update)
-
-
-def _value_and_grad(loss_fn, params, *args):
-    """(loss, grads) of ``loss_fn(params, *args)``; grads a tree like params."""
-    live = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    loss = loss_fn(live, *args)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    return loss.detach(), tree_map(lambda _: next(grads), live)
 
 
 def run_fl(
@@ -148,7 +163,7 @@ def run_fl(
         losses = []
         for batch, gen in zip(batches, step_gens):
             extra = (rho,) if cfg.rho_in_loss else ()
-            loss, g = _value_and_grad(loss_fn, p, batch, gen, *extra)
+            loss, g = value_and_grad(loss_fn, p, batch, gen, *extra)
             with torch.no_grad():
                 p, state = opt_update(g, state, p)
             losses.append(loss)

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from typing import Callable
 
+import torch
+
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: Hopper (sm_90a), a plain C interface in a shared library, ptxas' report
 BASE_FLAGS = (
@@ -33,6 +35,21 @@ def aligned16(t) -> bool:
     size = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         st * size % 16 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
+def refuse_autograd(name: str, *inputs) -> None:
+    """Raise if autograd would record a launch of kernel ``name``: grad mode
+    is on and a floating input requires grad. The kernels are forward only,
+    as the TPU kernels are (the reference differentiates its plain path), and
+    the output a launch writes has no ``grad_fn``: a loss built on it would
+    train with zero gradient through the kernel, silently."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
+            for t in inputs):
+        raise RuntimeError(
+            f"{name} kernel: forward only, it has no backward pass; an input requires grad "
+            "under grad mode, so take the plain route (use_kernel=False) to differentiate"
+        )
 
 
 def nvcc() -> str:

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..build import BASE_FLAGS, CudaLibrary
+from ..build import BASE_FLAGS, CudaLibrary, refuse_autograd
 
 #: kernel launches since the counter was last set to 0
 launches = 0
@@ -73,7 +73,11 @@ def prepare(
     check_feasible: bool = True,
 ) -> Launch:
     """Check and lay out the arguments of a launch on CUDA tensors (shapes as
-    in `objective_batch`); raise on what the kernel does not take."""
+    in `objective_batch`); raise on what the kernel does not take, and on an
+    input that requires grad under grad mode (`refuse_autograd`: the kernel
+    is forward only)."""
+    refuse_autograd("fedsem_objective", f, p, r, rho, c, d, D, C, t_sc_max, f_max, dev_mask,
+                    kappa1, kappa2, kappa3, a_acc, b_acc)
     f = torch.as_tensor(f)
     if not f.is_cuda:
         raise ValueError(f"fedsem_objective kernel: tensors must be on a CUDA device, got {f.device}")

@@ -19,7 +19,7 @@ import pathlib
 import numpy as np
 import torch
 
-from ..build import BASE_FLAGS, CudaLibrary
+from ..build import BASE_FLAGS, CudaLibrary, refuse_autograd
 
 #: kernel launches since the counter was last set to 0
 launches = 0
@@ -65,8 +65,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     and at most 65535 blocks of 128 query rows; anything else raises (nothing
     falls back to the float32 kernel or the plain version). Keys at positions
     > the query's are masked if ``causal``, and at qpos - kpos >= ``window``
-    if a window is given; ``cap`` is the softcap of the scores.
+    if a window is given; ``cap`` is the softcap of the scores. Forward only:
+    an input that requires grad under grad mode raises (`refuse_autograd`).
     """
+    refuse_autograd("flash_attention", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash_attention kernel: q, k, v must be on one CUDA device, got "

@@ -17,7 +17,7 @@ import pathlib
 
 import torch
 
-from ..build import BASE_FLAGS, CudaLibrary, aligned16
+from ..build import BASE_FLAGS, CudaLibrary, aligned16, refuse_autograd
 
 #: kernel launches since the counter was last set to 0
 launches = 0
@@ -55,8 +55,10 @@ def mamba_scan(x, dt, Bm, Cm, A, D) -> torch.Tensor:
     x, dt, and Bm/Cm (one type for both): CUDA tensors, float32 or bfloat16
     each, all on one card, any strides with the last dim contiguous, N in
     `STATE_SIZES`. A and D: any floating type on the same card (taken as
-    float32). The math is float32 whatever the types.
+    float32). The math is float32 whatever the types. Forward only: an input
+    that requires grad under grad mode raises (`refuse_autograd`).
     """
+    refuse_autograd("mamba_scan", x, dt, Bm, Cm, A, D)
     ts = (x, dt, Bm, Cm, A, D)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError(

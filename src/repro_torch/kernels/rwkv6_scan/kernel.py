@@ -17,7 +17,7 @@ import pathlib
 
 import torch
 
-from ..build import BASE_FLAGS, CudaLibrary, aligned16
+from ..build import BASE_FLAGS, CudaLibrary, aligned16, refuse_autograd
 
 #: kernel launches since the counter was last set to 0
 launches = 0
@@ -56,8 +56,10 @@ def rwkv6_scan(r, k, v, w, u, out_dtype=None) -> torch.Tensor:
     bfloat16; ``out_dtype``: float32 or bfloat16. All on one card, any
     strides with the head dim contiguous, hd in `HEAD_DIMS`. u: any floating
     type on the same card (taken as float32). The math is float32 whatever
-    the types.
+    the types. Forward only: an input that requires grad under grad mode
+    raises (`refuse_autograd`).
     """
+    refuse_autograd("rwkv6_scan", r, k, v, w, u)
     ts = (r, k, v, w, u)
     if not all(t.is_cuda and t.device == r.device for t in ts):
         raise ValueError(

@@ -29,7 +29,7 @@ class ServeLoop:
 
     def __init__(self, cfg, params: M.LM, batch_slots: int, max_len: int, mesh=None):
         if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet: ROADMAP.md §1, item 11")
+            raise NotImplementedError("meshes are not ported yet: ROADMAP.md §1, item 11b")
         self.cfg, self.params = cfg, params
         self.max_len = max_len
         self.device = params.device

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.kernel import scale_of
 
@@ -73,9 +74,9 @@ def flash_attention(
     q_pos = q_pos.reshape(qp // q_chunk, q_chunk)
     kv_pos = kv_pos.reshape(kp // kv_chunk, kv_chunk)
 
-    outs = []
-    for i in range(qp // q_chunk):
-        qc, qpos_c = q[:, i].float(), q_pos[i]          # (B, qc, KV, G, hd), (qc,)
+    def q_step(qc, qpos_c):
+        """One query chunk (B, qc, KV, G, hd) over every kv chunk."""
+        qc = qc.float()
         out = torch.zeros((B, KV, G, q_chunk, hd), dtype=torch.float32, device=dev)
         m = torch.full((B, KV, G, q_chunk), -torch.inf, device=dev)
         l = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=dev)
@@ -101,7 +102,16 @@ def flash_attention(
             out = out * corr[..., None] + pv
             m = m_new
         out = out / torch.clamp_min(l[..., None], 1e-20)
-        outs.append(out.permute(0, 3, 1, 2, 4).to(v.dtype))  # (B, qc, KV, G, hd)
+        return out.permute(0, 3, 1, 2, 4).to(v.dtype)  # (B, qc, KV, G, hd)
+
+    # under autograd each chunk is recomputed in the backward pass, as the
+    # reference's jax.checkpoint does: its probability matrices are not kept
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        step = lambda qc, qpos_c: checkpoint(q_step, qc, qpos_c, use_reentrant=False,
+                                             preserve_rng_state=False)
+    else:
+        step = q_step
+    outs = [step(q[:, i], q_pos[i]) for i in range(qp // q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, qp, H, hd)[:, :S]
 
 

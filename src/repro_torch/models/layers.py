@@ -74,3 +74,19 @@ def gelu_mlp(x, w_up, w_down, b_up=None, b_down=None):
     if b_down is not None:
         out = out + b_down
     return out
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Token CE in float32, averaged over the valid tokens; labels < 0 are
+    ignored, and so are tokens where ``mask`` is False.
+
+    The gold logit is gathered (the reference reduces a one-hot product,
+    for its vocab-sharded logits; both read the same float32 value, and the
+    gather builds no (B, S, V) one-hot)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    nll = logz - gold
+    valid = (labels >= 0) if mask is None else (mask & (labels >= 0))
+    nll = torch.where(valid, nll, 0.0)
+    return torch.sum(nll) / torch.clamp_min(torch.sum(valid), 1)

@@ -2,19 +2,26 @@
 
 Counterpart of `repro.models.model` for ``attn``/``attn_local`` and
 ``mamba`` blocks with a dense FFN and for ``rwkv`` blocks (time mix and
-channel mix). The
-reference stacks each stage's per-period parameters and scans over them;
-here every layer is its own `Block` in an `nn.ModuleList`,
-in the reference's order (stage by stage, period by period, pattern position
-by pattern position), with the reference's parameter names (``ln``,
-``attn.wq``, ``ffn.w_gate``, ...). Parameters are built from plain dicts of
-tensors, by `init_params` (random, from a `torch.Generator`) or by
-`repro_torch.bridge.lm_params_from_numpy` (the reference's pytree).
+channel mix). The parameters are one tree, laid out as the reference's
+parameter pytree: ``embed``, ``final_ln``, optional ``head`` and
+``stages[name]["b{j}"]``, each leaf of a block stacked over the stage's
+periods, with the reference's parameter names (``ln``, ``attn.wq``,
+``ffn.w_gate``, ...). An `LM` holds that tree and its layers, each a
+`Block` of views of the stacked leaves, in the reference's order (stage by
+stage, period by period, pattern position by pattern position). It is
+built by `init_params` (random, from a `torch.Generator`) or by
+`repro_torch.bridge.lm_params_from_numpy` (the reference's pytree). The
+train step, `fl.run_fl` and `checkpoint.io` take the tree (``LM.tree``),
+and a per-leaf rule on it (`fl.topk_sparsify`) sees the reference's leaves.
 
 Entry points:
   * forward(params, cfg, batch)               -> (logits, aux)
+  * loss_fn(params, cfg, batch)               -> scalar   (training)
   * prefill(params, cfg, batch)               -> logits
   * decode_step(params, cfg, token, pos, cache) -> (logits, cache)
+
+`forward` and `loss_fn` take an `LM` or its tree; over a tree, gradients
+reach the tree's leaves.
 
 MoE and MLA layers, frontends, meshes and the configs the registry lists
 in ``NOT_PORTED`` are not ported yet and raise `NotImplementedError`
@@ -24,58 +31,61 @@ with its experts, raises; its dense cut (``n_experts=0``) runs.
 from __future__ import annotations
 
 import torch
-from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.registry import NOT_PORTED, canonical
+from ..core.types import tree_leaves, tree_map
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv as rwk
 from .config import ModelConfig
-from .layers import dense_init, dtype_of, rms_norm, softcap
+from .layers import cross_entropy, dense_init, dtype_of, rms_norm, softcap
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-class Block(nn.Module):
+class Block:
     """One layer: ``ln``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, optional
     ``post_ln``, ``ffn_ln``, ``ffn`` {w_gate, w_up, w_down | w_up, b_up,
     w_down, b_down}, optional ``post_ffn_ln``; a ``mamba`` layer has
     ``mamba`` {in_proj, conv_w, ...} in place of ``attn``; an ``rwkv`` layer
     has ``ln``, ``rwkv`` (time and channel mix), optional ``post_ln`` and
-    ``ffn_ln``."""
+    ``ffn_ln``. Its tensors are views of the tree's stacked leaves."""
 
     def __init__(self, kind: str, p: dict):
-        super().__init__()
         self.kind = kind
         for name, value in p.items():
-            if isinstance(value, dict):
-                self.add_module(name, nn.ParameterDict({k: _param(x) for k, x in value.items()}))
-            else:
-                self.register_parameter(name, _param(value))
+            setattr(self, name, value)
 
 
-class LM(nn.Module):
-    """``embed`` (V, d), ``final_ln`` (d,), ``head`` (d, V) unless tied, and
-    the ``layers``."""
+class LM:
+    """The parameter tree ``tree`` (see the module's docstring) and its
+    views: ``embed`` (V, d), ``final_ln`` (d,), ``head`` (d, V) unless tied
+    (else None), and the ``layers``, each a `Block` over period ``period``
+    of its stage's block ``b{j}`` (`torch.unbind` along the period axis)."""
 
-    def __init__(self, cfg: ModelConfig, embed, final_ln, layers: list[dict], head=None):
-        super().__init__()
-        self.cfg = cfg
-        self.embed = _param(embed)
-        self.final_ln = _param(final_ln)
-        if head is not None:
-            self.head = _param(head)
+    def __init__(self, cfg: ModelConfig, tree: dict):
         kinds = layer_kinds(cfg)
-        if len(layers) != len(kinds):
-            raise ValueError(f"{cfg.name}: {len(layers)} layers given, the config has {len(kinds)}")
-        self.layers = nn.ModuleList(Block(kind, p) for kind, p in zip(kinds, layers))
+        self.cfg, self.tree = cfg, tree
+        self.embed, self.final_ln, self.head = tree["embed"], tree["final_ln"], tree.get("head")
+        pat, layers = cfg.pattern_len, []
+        for name, n_periods, _moe in cfg.stages():
+            blocks = [_unbind(tree["stages"][name][f"b{j}"], n_periods) for j in range(pat)]
+            layers += [blocks[j][period] for period in range(n_periods) for j in range(pat)]
+        self.layers = [Block(kind, p) for kind, p in zip(kinds, layers, strict=True)]
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+def _unbind(node, n: int) -> list:
+    """A block's stacked leaves (n, ...) -> n per-period dicts of views."""
+    if isinstance(node, dict):
+        parts = {k: _unbind(v, n) for k, v in node.items()}
+        return [{k: parts[k][i] for k in node} for i in range(n)]
+    if node.shape[0] != n:
+        raise ValueError(f"a stacked leaf of {node.shape[0]} periods, the stage has {n}")
+    return list(node.unbind(0))
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -83,7 +93,7 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.use_mla or cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: MoE/MLA layers are not ported yet: ROADMAP.md §1, item 12")
     if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: ROADMAP.md §1, item 11")
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: ROADMAP.md §1, item 11b")
     arch = canonical(cfg.name)
     if arch in NOT_PORTED:
         raise NotImplementedError(f"{cfg.name} is not ported yet: ROADMAP.md §1, {NOT_PORTED[arch]}")
@@ -129,15 +139,31 @@ def _init_block(generator, cfg: ModelConfig, kind: str) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
-    """Random parameters of the reference's law, on the generator's device."""
-    kinds = layer_kinds(cfg)                  # raises for what is not ported, before allocating
+    """Random parameters of the reference's law, on the generator's device:
+    drawn layer by layer in the reference's order, each layer written into
+    its period of the stacked leaves (so init holds one layer beyond the
+    tree)."""
+    layer_kinds(cfg)                          # raises for what is not ported, before allocating
     dt = dtype_of(cfg)
     d = cfg.d_model
-    embed = dense_init(generator, (cfg.vocab, d), scale=0.02, dtype=dt)
+    tree = {"embed": dense_init(generator, (cfg.vocab, d), scale=0.02, dtype=dt)}
     head = None if cfg.tie_embeddings else dense_init(generator, (d, cfg.vocab), dtype=dt)
-    layers = [_init_block(generator, cfg, kind) for kind in kinds]
-    final_ln = torch.zeros((d,), dtype=dt, device=generator.device)
-    return LM(cfg, embed, final_ln, layers, head)
+    stages = {}
+    for name, n_periods, _moe in cfg.stages():
+        blocks = [None] * cfg.pattern_len
+        for period in range(n_periods):
+            for j, kind in enumerate(cfg.block_pattern):
+                p = _init_block(generator, cfg, kind)
+                if blocks[j] is None:
+                    blocks[j] = tree_map(lambda x: x.new_empty((n_periods, *x.shape)), p)
+                for dst, src in zip(tree_leaves(blocks[j]), tree_leaves(p), strict=True):
+                    dst[period].copy_(src)
+        stages[name] = {f"b{j}": block for j, block in enumerate(blocks)}
+    tree["final_ln"] = torch.zeros((d,), dtype=dt, device=generator.device)
+    if head is not None:
+        tree["head"] = head
+    tree["stages"] = stages
+    return LM(cfg, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +212,7 @@ def _apply_block(blk: Block, cfg, x, positions, use_kernel):
 
 def _embed(params: LM, cfg, batch):
     if cfg.frontend is not None or "tokens" not in batch:
-        raise NotImplementedError("frontends are not ported yet: ROADMAP.md §1, item 11")
+        raise NotImplementedError("frontends are not ported yet: ROADMAP.md §1, item 11b")
     x = params.embed[batch["tokens"]]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
@@ -203,20 +229,55 @@ def _head(params: LM, cfg, x):
 
 def _no_mesh(mesh):
     if mesh is not None:
-        raise NotImplementedError("meshes (sharded models) are not ported yet: ROADMAP.md §1, item 11")
+        raise NotImplementedError("meshes (sharded models) are not ported yet: ROADMAP.md §1, item 11b")
 
 
-def forward(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
+def _run_layers(params: LM, cfg, x, positions, use_kernel, remat):
+    """The layers, one period (``pattern_len`` layers) at a time. With
+    ``remat`` under grad mode each period is recomputed in the backward pass
+    (the reference's jax.checkpoint of its scanned period): only the
+    residual stream between periods is kept."""
+    layers = list(params.layers)
+    period = cfg.pattern_len
+    for i in range(0, len(layers), period):
+        def period_fn(x, blocks=layers[i:i + period]):
+            for blk in blocks:
+                x = _apply_block(blk, cfg, x, positions, use_kernel)
+            return x
+
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(period_fn, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = period_fn(x)
+    return x
+
+
+def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat=True):
     """Logits (B, S, V) of ``batch["tokens"]`` (B, S), and the auxiliary loss
-    (0 without MoE). ``use_kernel`` picks the route of the attention, the WKV
-    recurrence and the selective scan: "auto" (the CUDA kernels iff on a
-    card), True (the kernels; CPU tensors raise) or False (the plain
-    versions)."""
+    (0 without MoE). ``params``: an `LM` or its tree (``LM.tree``).
+    ``use_kernel`` picks the route of the attention, the WKV recurrence and
+    the selective scan: "auto" (the CUDA kernels iff on a card), True (the
+    kernels; CPU tensors raise) or False (the plain versions). The kernels
+    are forward only: under grad mode with trainable leaves they raise, so
+    a differentiated forward takes ``use_kernel=False``. ``remat``: see
+    `_run_layers` (no effect without grad mode)."""
     _no_mesh(mesh)
+    if not isinstance(params, LM):
+        params = LM(cfg, params)
     x, positions = _embed(params, cfg, batch)
-    for blk in params.layers:
-        x = _apply_block(blk, cfg, x, positions, use_kernel)
+    x = _run_layers(params, cfg, x, positions, use_kernel, remat)
     return _head(params, cfg, x), 0.0
+
+
+def loss_fn(params, cfg: ModelConfig, batch, mesh=None, use_kernel=False, remat=True):
+    """Mean token cross-entropy of ``batch`` {"tokens", "labels"} (B, S)
+    (labels < 0 ignored), with the reference's defaults: the plain
+    sequence mixers (the kernels have no backward pass) and remat. The
+    reference's MoE auxiliary term is unreachable (`check_ported` raises for
+    experts); a mesh raises."""
+    _no_mesh(mesh)
+    logits, _aux = forward(params, cfg, batch, mesh, use_kernel, remat)
+    return cross_entropy(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -267,4 +328,4 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None)
 def prefill(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
     """Full-sequence forward returning logits (the cache is built by the
     decode path, as in the reference)."""
-    return forward(params, cfg, batch, mesh=mesh, use_kernel=use_kernel)[0]
+    return forward(params, cfg, batch, mesh=mesh, use_kernel=use_kernel, remat=False)[0]

@@ -25,10 +25,27 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor `clip_by_global_norm` scales every leaf by."""
+    return torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda x: x * scale, tree), norm
+
+
+def value_and_grad(loss_fn, params, *args):
+    """(loss, grads) of ``loss_fn(params, *args)``, grads a tree like
+    ``params``: `jax.value_and_grad` on a tree of tensors. The loss is
+    taken of detached aliases of the leaves (same storage, made to require
+    grad), under grad mode whatever the caller's."""
+    with torch.enable_grad():
+        live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss = loss_fn(live, *args)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), live)
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:

@@ -425,3 +425,90 @@ def test_new_modules_import_neither_jax_nor_the_reference(module):
                  else [])
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), (module, name)
+
+
+# ---------------------------------------------------------------------------
+# federated LM fine-tuning (examples/federated_lm.py's computation)
+# ---------------------------------------------------------------------------
+
+
+def test_topk_sparsify_keeps_the_references_set_on_a_leaf_over_2_24():
+    """A leaf of 2^24 + 1 entries (`torch.quantile` refuses more than 2^24;
+    a full-width LM's embedding has 311 M): the reference's kept set, with
+    the reference's float32 rank arithmetic (n itself rounds to 2^24)."""
+    from repro.fl.federated import topk_sparsify as jtopk
+
+    u = np.random.default_rng(8).standard_normal(2**24 + 1).astype(np.float32)
+    got = federated.topk_sparsify({"w": torch.from_numpy(u)}, 0.3)["w"].numpy()
+    want = np.asarray(jtopk({"w": jnp.asarray(u)}, 0.3)["w"])
+    np.testing.assert_array_equal(got, want)
+    assert np.count_nonzero(got) == np.count_nonzero(want) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("frac", [0.3, 0.75, 1.0])
+def test_topk_sparsify_keeps_the_references_set_with_ties(dtype, frac):
+    """Leaves with ties at and around the threshold (half the entries 0, the
+    rest from a few magnitudes), float32 and bfloat16: the reference's kept
+    set and values, at rho below 1 and at 1."""
+    from repro.fl.federated import topk_sparsify as jtopk
+
+    rng = np.random.default_rng(11)
+    u = np.where(rng.random(4099) < 0.5, 0.0, rng.choice([-3.0, -1.0, 0.5, 1.0, 2.0], 4099))
+    u = u.astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = federated.topk_sparsify({"w": torch.from_numpy(u).to(tdt)}, frac)["w"].float().numpy()
+    want = np.asarray(jtopk({"w": jnp.asarray(u, jdt)}, frac)["w"].astype(jnp.float32))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_one_run_fl_round_of_a_smoke_lm_matches_the_reference():
+    """The smoke Qwen2.5-3B (float32), bridged; client token batches drawn
+    from the reference's keys as its `run_fl` derives them; one allocation
+    with rho 0.4 handed to both: the same round loss and aggregated
+    parameters (the kept sets of the sparsified uploads agree)."""
+    from repro.configs.registry import get_config as jget_config
+    from repro.models import model as JM
+    from repro.models.config import smoke_variant as jsmoke
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.models.config import smoke_variant
+
+    jcfg, cfg = jsmoke(jget_config("qwen2_5_3b")), smoke_variant(registry.get_config("qwen2_5_3b"))
+    n, steps, rho = 2, 2, 0.4
+    fl = dict(n_clients=n, n_subcarriers=8, rounds=1, local_steps=steps, lr=0.02, compress=True)
+    key = jax.random.PRNGKey(7)
+    _, k_data, _ = jax.random.split(jax.random.fold_in(key, 0), 3)
+
+    def batch_of(k, i):
+        toks = jax.random.randint(k, (2, 17), 0, jcfg.vocab)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    batches = [batch_of(jax.random.fold_in(k_data, i * 1000 + s), i)
+               for i in range(n) for s in range(steps)]
+    X = np.zeros((n, 8), np.float32)
+    X[np.arange(8) % n, np.arange(8)] = 1.0
+    arrays = dict(f=np.full(n, 1e9, np.float32), P=0.01 * X, X=X, rho=np.float32(rho))
+    jalloc = JAllocation(*(jnp.asarray(arrays[k]) for k in ("f", "P", "X", "rho")))
+    jp0 = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    jparams, jhist = jrun_fl(key, jp0, lambda p, b, k: JM.loss_fn(p, jcfg, b), batch_of,
+                             JFLConfig(**fl), backend=JFixed(jalloc))
+
+    port_batches = iter({k: torch.from_numpy(np.array(v)) for k, v in b.items()} for b in batches)
+    params, hist = run_fl(
+        0, bridge.lm_tree_from_numpy(jax.tree.map(np.asarray, jp0), cfg, device="cpu"),
+        lambda p, b, gen: M.loss_fn(p, cfg, b), lambda gen, i: next(port_batches),
+        FLConfig(**fl), backend=TFixed(bridge.allocation_from_numpy(arrays, device="cpu")),
+    )
+    assert hist[0].loss == pytest.approx(jhist[0].loss, rel=LOSS_RTOL)
+    got = jax.tree_util.tree_flatten_with_path(bridge.lm_params_to_numpy(params))[0]
+    want = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jparams))[0]
+    for (path, a), (_, b) in zip(got, want, strict=True):
+        np.testing.assert_allclose(a, b, atol=PARAM_ATOL, rtol=0, err_msg=jax.tree_util.keystr(path))
+
+
+def test_federated_lm_cli_lowers_the_loss(capsys):
+    from repro_torch.launch import federated_lm
+
+    assert federated_lm.main(["--device", "cpu", "--rounds", "2"]) == 0
+    assert "FL reduced loss" in capsys.readouterr().out

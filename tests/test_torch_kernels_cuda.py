@@ -783,3 +783,72 @@ def test_sharded_solve_over_two_cards(two_cards):
     assert kernel.launches - before == 2 * (alloc.outer_iters + 1)
     assert sharded.alloc.X.device == two_cards[0]
     assert torch.equal(sharded.alloc.X, single.alloc.X)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels refuse autograd; the train step and the FL
+# sparsification on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd_on_the_card(card):
+    """Each wrapper, given CUDA inputs it takes, raises under grad mode when
+    one requires grad (naming the plain route), and launches without it."""
+    g = torch.Generator(card).manual_seed(0)
+    rand = lambda *shape: torch.randn(shape, generator=g, device=card)
+    q, k = rand(1, 64, 4, 64), rand(1, 64, 2, 64)
+    r = rand(1, 2, 64, 64)
+    w = torch.rand((1, 2, 64, 64), generator=g, device=card) * 0.5 + 0.4
+    x, dt, Bm = rand(1, 32, 64), torch.rand((1, 32, 64), generator=g, device=card) * 0.1, rand(1, 32, 16)
+    A, D = -torch.rand((64, 16), generator=g, device=card), rand(64)
+    (f, p, rr, rho, *rows), mask = grid_inputs(3, 2, 5, 4)
+    obj = [torch.from_numpy(a).to(card) for a in (f, p, rr, rho, *rows)]
+    calls = {
+        "flash_attention": (lambda t: flash_kernel.flash_attention(q, t, k), k),
+        "rwkv6_scan": (lambda t: wkv_kernel.rwkv6_scan(r, r, r, w, t), rand(2, 64)),
+        "mamba_scan": (lambda t: scan_kernel.mamba_scan(x, t, Bm, Bm, A, D), dt),
+        "fedsem_objective": (lambda t: kernel.objective_batch(
+            obj[0], t, *obj[2:], torch.from_numpy(mask).to(card), 1.0, 1.0, 1.0, *AB,
+            xi=XI, eta=ETA), obj[1]),
+    }
+    for name, (call, arg) in calls.items():
+        with pytest.raises(RuntimeError, match=r"use_kernel=False"):
+            call(arg.clone().requires_grad_(True))
+        with torch.no_grad():
+            assert torch.all(torch.isfinite(call(arg.clone().requires_grad_(True)))), name
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_on_the_card_matches_the_cpu(card):
+    """One `build_train_step` step of the smoke Qwen2.5-3B (float32) from the
+    same state and batch on the card and on the CPU: the same loss and
+    grad norm (rtol 1e-4), and no kernel launched on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import tree_map
+    from repro_torch.launch import train as T
+    from repro_torch.models.config import smoke_variant
+
+    cfg = smoke_variant(get_config("qwen2_5_3b"))
+    toks = torch.randint(0, cfg.vocab, (4, 65), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        state = T.init_state(cfg, torch.Generator().manual_seed(0), 1e-3)
+        state = tree_map(lambda x: x.to(dev), state)
+        before = (flash_kernel.launches, kernel.launches)
+        _, metrics = T.build_train_step(cfg, lr=1e-3)(state, tree_map(lambda x: x.to(dev), batch))
+        assert (flash_kernel.launches, kernel.launches) == before
+        out[dev.type] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+    assert out["cuda"] == pytest.approx(out["cpu"], rel=1e-4)
+
+
+@pytest.mark.cuda
+def test_topk_sparsify_on_the_card_equals_the_cpu(card):
+    """A leaf of 2^24 + 1 entries (past `torch.quantile`'s limit): the
+    card's kept set is the CPU's."""
+    from repro_torch.fl import topk_sparsify
+
+    u = torch.randn(2**24 + 1, generator=torch.Generator().manual_seed(2))
+    got = topk_sparsify({"w": u.to(card)}, 0.3)["w"].cpu()
+    assert torch.equal(got, topk_sparsify({"w": u}, 0.3)["w"])

@@ -213,7 +213,7 @@ def test_bridge_takes_bfloat16_pytrees_exactly():
 def test_init_params_follows_the_reference_law():
     cfg = smoke_variant(registry.get_config("qwen2_5_3b"))
     tp = M.init_params(cfg, torch.Generator().manual_seed(0))
-    assert sum(p.numel() for p in tp.parameters()) == sum(
+    assert sum(p.numel() for p in jax.tree.leaves(tp.tree)) == sum(
         np.size(x) for x in jax.tree.leaves(JM.init_params(jax.random.PRNGKey(0), jsmoke(
             jget_config("qwen2_5_3b")))))
     wq = tp.layers[0].attn["wq"]

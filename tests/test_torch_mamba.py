@@ -400,8 +400,9 @@ def test_bridge_keeps_the_float32_leaves_of_a_bf16_model():
             np.testing.assert_array_equal(blk.mamba[name].float().numpy(),
                                           np.asarray(leaf[layer // cfg.pattern_len], np.float32))
     own = M.init_params(cfg, torch.Generator().manual_seed(0))
-    assert {n: (tuple(p.shape), p.dtype) for n, p in own.named_parameters()} == \
-        {n: (tuple(p.shape), p.dtype) for n, p in tp.named_parameters()}
+    leaves = lambda lm: {jax.tree_util.keystr(k): (tuple(p.shape), p.dtype)
+                         for k, p in jax.tree_util.tree_flatten_with_path(lm.tree)[0]}
+    assert leaves(own) == leaves(tp)
     blk, src = own.layers[0].mamba, tree["stages"]["main"]["b0"]["mamba"]
     for name in ("A_log", "dt_bias", "D"):   # the same law, computed by each library's log
         np.testing.assert_allclose(blk[name].numpy(), np.asarray(src[name][0]), rtol=1e-6)

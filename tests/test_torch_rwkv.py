@@ -493,8 +493,9 @@ def test_bridge_and_init_follow_the_reference_layout():
         for name, leaf in src["rwkv"].items():
             np.testing.assert_array_equal(blk.rwkv[name].numpy(), np.asarray(leaf[layer]))
     own = M.init_params(cfg, torch.Generator().manual_seed(0))
-    assert {n: tuple(p.shape) for n, p in own.named_parameters()} == \
-        {n: tuple(p.shape) for n, p in tp.named_parameters()}
+    leaves = lambda lm: {jax.tree_util.keystr(k): tuple(p.shape)
+                         for k, p in jax.tree_util.tree_flatten_with_path(lm.tree)[0]}
+    assert leaves(own) == leaves(tp)
     blk = own.layers[0].rwkv
     assert abs(float(blk["wr"].std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
     assert float(blk["w_bias"].max()) == float(blk["w_bias"].min()) == -6.0

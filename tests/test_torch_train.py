@@ -1,0 +1,337 @@
+"""The port's LM training path (`repro_torch.launch.train`, `models.model.
+loss_fn`, remat, the tree view) against the JAX reference, on the CPU.
+
+The reference's smoke variants, in float32, of Gemma-2 2B, Qwen2.5-3B,
+RWKV-6 1.6B and the Jamba dense cut (`smoke_variant(cfg).scaled(n_experts=0,
+top_k=0)`) are initialised by the reference and bridged into the port
+(`bridge.lm_tree_from_numpy`); token batches are numpy draws handed to
+both. Tolerances: the loss at rtol 1e-5 and each gradient leaf at relative
+L2 1e-4 (measured: losses within 2e-7, leaves within 1e-5); remat on and off
+bit for bit; five AdamW steps at rtol 1e-4 on the losses. RWKV-6 and the
+Jamba cut are chaotic at the ulp level over five steps (the reference
+itself moves by up to 1.5e-4 when its batch embeddings move by one ulp;
+ROADMAP.md §3), so their steps are held within 3x that spread where it
+exceeds 1e-4.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jget_config
+from repro.launch import train as JT
+from repro.models import attention as Jattn, layers as JL, model as JM
+from repro.models.config import smoke_variant as jsmoke
+from repro_torch import bridge
+from repro_torch.configs import registry
+from repro_torch.core.types import tree_leaves
+from repro_torch.kernels.fedsem_objective import kernel as obj_kernel, ops as obj_ops
+from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as flash_ops
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel, ops as scan_ops
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel, ops as wkv_ops
+from repro_torch.launch import train as T
+from repro_torch.models import attention as A, layers as L, model as M
+from repro_torch.models.config import smoke_variant
+from repro_torch.optim.optimizers import adamw, value_and_grad
+
+torch.set_num_threads(1)
+
+ARCHS = ("gemma2_2b", "qwen2_5_3b", "rwkv6_1_6b", "jamba_1_5_large_398b")
+DENSE = dict(n_experts=0, top_k=0)
+LOSS_RTOL, GRAD_REL_L2, STEP_RTOL = 1e-5, 1e-4, 1e-4
+#: families whose five-step losses move with one-ulp input changes in the
+#: reference itself (ROADMAP.md §3)
+CHAOTIC = ("rwkv6_1_6b", "jamba_1_5_large_398b")
+LR, STEPS = 1e-3, 5
+
+
+def _configs(arch):
+    jcfg, cfg = jsmoke(jget_config(arch)), smoke_variant(registry.get_config(arch))
+    if arch == "jamba_1_5_large_398b":
+        jcfg, cfg = jcfg.scaled(**DENSE), cfg.scaled(**DENSE)
+    return jcfg, cfg
+
+
+_MODELS = {}
+
+
+def _model(arch):
+    """(jax cfg, jax params, port cfg) of one smoke arch, built once."""
+    if arch not in _MODELS:
+        jcfg, cfg = _configs(arch)
+        _MODELS[arch] = (jcfg, JM.init_params(jax.random.PRNGKey(0), jcfg), cfg)
+    return _MODELS[arch]
+
+
+def _tree(jp, cfg):
+    return bridge.lm_tree_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+
+
+def _batches(cfg, seed, n, B=2, S=32):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, cfg.vocab, (B, S + 1))
+        out.append(({"tokens": jnp.asarray(toks[:, :-1], jnp.int32),
+                     "labels": jnp.asarray(toks[:, 1:], jnp.int32)},
+                    {"tokens": torch.from_numpy(toks[:, :-1]),
+                     "labels": torch.from_numpy(toks[:, 1:])}))
+    return out
+
+
+def _jax_leaves(tree):
+    """(key path, numpy leaf) pairs of a reference pytree, sorted by path."""
+    return [(jax.tree_util.keystr(p), np.asarray(x))
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+# ---------------------------------------------------------------------------
+# the loss and its gradients
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_match_reference(arch):
+    jcfg, jp, cfg = _model(arch)
+    jb, tb = _batches(cfg, 0, 1)[0]
+    jloss, jgrads = jax.value_and_grad(lambda p: JM.loss_fn(p, jcfg, jb))(jp)
+    loss, grads = value_and_grad(lambda p: M.loss_fn(p, cfg, tb), _tree(jp, cfg))
+    assert float(loss) == pytest.approx(float(jloss), rel=LOSS_RTOL)
+    want = _jax_leaves(jgrads)
+    got = _jax_leaves(bridge.lm_params_to_numpy(grads))
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (key, g), (_, w) in zip(got, want):
+        assert np.all(np.isfinite(g)), key
+        rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
+        assert rel <= GRAD_REL_L2, f"{arch} {key}: relative L2 {rel:.3g}"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_identical_grads(arch):
+    """Recomputing each period in the backward pass changes nothing."""
+    _, jp, cfg = _model(arch)
+    _, tb = _batches(cfg, 1, 1)[0]
+    tree = _tree(jp, cfg)
+    l1, g1 = value_and_grad(lambda p: M.loss_fn(p, cfg, tb, remat=True), tree)
+    l0, g0 = value_and_grad(lambda p: M.loss_fn(p, cfg, tb, remat=False), tree)
+    assert torch.equal(l1, l0)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g0)))
+
+
+def test_cross_entropy_matches_reference():
+    """Ignored labels (< 0) and a mask, against the reference's one-hot CE."""
+    rng = np.random.default_rng(3)
+    logits = (rng.standard_normal((2, 7, 33)) * 4).astype(np.float32)
+    labels = rng.integers(-1, 33, (2, 7)).astype(np.int32)
+    mask = rng.uniform(size=(2, 7)) > 0.3
+    for m in (None, mask):
+        want = JL.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                None if m is None else jnp.asarray(m))
+        got = L.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                              None if m is None else torch.from_numpy(m))
+        assert float(got) == pytest.approx(float(want), rel=1e-6)
+    all_ignored = L.cross_entropy(torch.from_numpy(logits), torch.full((2, 7), -1))
+    assert float(all_ignored) == 0.0
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (5, None), (5, 30.0)])
+def test_plain_attention_grads_finite_on_masked_and_padded_rows(window, cap):
+    """The chunked attention under autograd: masked scores are -inf, padded
+    query rows (S not a chunk multiple) and rows the window masks wholly
+    must give finite gradients, equal to `jax.grad` of the reference's."""
+    rng = np.random.default_rng(4)
+    B, S, H, KV, hd = 2, 13, 4, 2, 8
+    q, k, v = (rng.standard_normal((B, S, h, hd)).astype(np.float32) for h in (H, KV, KV))
+    w = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    # kv entries 3 and 4 unwritten; each query chunk meets a kv chunk that
+    # masks it wholly (causal), and with a window the padded query rows (at
+    # position 2^30) see no key at all
+    kv_pos = np.arange(S, dtype=np.int32)
+    kv_pos[3:5] = -1
+    kw = dict(causal=True, window=window, cap=cap, q_chunk=4, kv_chunk=8)
+
+    def jloss(q, k, v):
+        out = Jattn.flash_attention(q, k, v, q_positions=jnp.arange(S, dtype=jnp.int32),
+                                    kv_positions=jnp.asarray(kv_pos), **kw)
+        return jnp.sum(out * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = A.flash_attention(*ts, q_positions=torch.arange(S, dtype=torch.int32),
+                            kv_positions=torch.from_numpy(kv_pos), **kw)
+    got = torch.autograd.grad(torch.sum(out * torch.from_numpy(w)), ts)
+    for g, wg in zip(got, want):
+        assert torch.all(torch.isfinite(g))
+        np.testing.assert_allclose(g.numpy(), np.asarray(wg), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the tree view and the bridge
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tree_round_trips(arch):
+    """An `LM`'s tree is laid out as the reference's pytree (exactly the
+    reference's arrays after the bridge), its layers are views of the
+    tree's storage, and `lm_params_to_numpy` inverts `lm_params_from_numpy`
+    exactly."""
+    _, jp, cfg = _model(arch)
+    arrays = jax.tree.map(np.asarray, jp)
+    lm = bridge.lm_params_from_numpy(arrays, cfg, device="cpu")
+    tree = lm.tree
+    for (k1, a), (k2, b) in zip(_jax_leaves(bridge.lm_params_to_numpy(lm)), _jax_leaves(arrays),
+                                strict=True):
+        assert k1 == k2
+        np.testing.assert_array_equal(a, b)
+    first, last = cfg.stages()[0][0], cfg.stages()[-1][0]
+    assert lm.layers[0].ffn_ln.data_ptr() == tree["stages"][first]["b0"]["ffn_ln"].data_ptr()
+    assert lm.layers[-1].ln.data_ptr() == \
+        tree["stages"][last][f"b{cfg.pattern_len - 1}"]["ln"][-1].data_ptr()
+    view = M.LM(cfg, tree)
+    assert view.embed is tree["embed"]
+    for a, b in zip(tree_leaves(view.tree), tree_leaves(bridge.lm_tree_from_numpy(arrays, cfg, "cpu")),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+def test_mesh_raises():
+    _, jp, cfg = _model("qwen2_5_3b")
+    _, tb = _batches(cfg, 2, 1)[0]
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        M.loss_fn(_tree(jp, cfg), cfg, tb, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        T.build_train_step(cfg, mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+
+def _reference_steps(jcfg, state, batches):
+    step = jax.jit(JT.build_train_step(jcfg, lr=LR))
+    losses = []
+    for jb, _ in batches:
+        state, m = step(state, jb)
+        losses.append(float(m["loss"]))
+    return np.array(losses)
+
+
+def _one_ulp_spread(jcfg, state, batches, ref, copies=4):
+    """The reference's largest relative move per step (from its losses
+    ``ref``) when the embedding rows of the batches' tokens move by one ulp
+    (a random sign each)."""
+    emb = np.asarray(state.params["embed"])
+    rows = np.unique(np.concatenate([np.asarray(jb["tokens"]).ravel() for jb, _ in batches]))
+    moves = []
+    for c in range(copies):
+        sign = np.random.default_rng(100 + c).choice([-1.0, 1.0], size=emb[rows].shape)
+        e = emb.copy()
+        e[rows] = np.nextafter(e[rows], e[rows] + sign.astype(np.float32) * np.inf)
+        moved = state._replace(params={**state.params, "embed": jnp.asarray(e)})
+        moves.append(np.abs(_reference_steps(jcfg, moved, batches) - ref) / np.abs(ref))
+    return np.max(moves, axis=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_steps_match_reference(arch):
+    """Five `build_train_step` steps from one bridged `TrainState` (the
+    reference's parameters and AdamW state) give the reference's losses."""
+    jcfg, _, cfg = _model(arch)
+    jstate = JT.init_state(jax.random.PRNGKey(0), jcfg, LR)
+    arrays = jax.tree.map(np.asarray, jstate)
+    state = T.TrainState(bridge.lm_tree_from_numpy(arrays.params, cfg, device="cpu"),
+                         bridge.opt_state_from_numpy(arrays.opt, cfg, device="cpu"))
+    batches = _batches(cfg, 5, STEPS)
+    want = _reference_steps(jcfg, jstate, batches)
+    step = T.build_train_step(cfg, lr=LR)
+    got = []
+    for _, tb in batches:
+        state, metrics = step(state, tb)
+        assert np.isfinite(float(metrics["grad_norm"]))
+        got.append(float(metrics["loss"]))
+    assert int(state.opt.step) == STEPS
+    rel = np.abs(np.array(got) / want - 1.0)
+    tol = np.full(STEPS, STEP_RTOL)
+    if arch in CHAOTIC:
+        tol = np.maximum(tol, 3.0 * _one_ulp_spread(jcfg, jstate, batches, want))
+    assert np.all(rel <= tol), f"{arch}: relative loss gaps {rel}, tolerances {tol}"
+
+
+def test_train_step_reaches_no_kernel(monkeypatch):
+    """Every kernel wrapper patched to raise and every dispatch made to see
+    a card: the train step still runs (it takes the plain route), while a
+    forward with the serving default ("auto") does reach a wrapper."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was reached")
+
+    for mod, name in ((flash_kernel, "flash_attention"), (wkv_kernel, "rwkv6_scan"),
+                      (scan_kernel, "mamba_scan"), (obj_kernel, "prepare")):
+        monkeypatch.setattr(mod, name, refuse)
+    for ops in (flash_ops, wkv_ops, scan_ops, obj_ops):
+        monkeypatch.setattr(ops, "wants_kernel", lambda use_kernel, x: use_kernel is not False)
+    for arch in ARCHS:
+        _, jp, cfg = _model(arch)
+        _, tb = _batches(cfg, 6, 1)[0]
+        tree = _tree(jp, cfg)
+        state = T.TrainState(tree, adamw(LR)[0](tree))
+        _, metrics = T.build_train_step(cfg, lr=LR)(state, tb)
+        assert np.isfinite(float(metrics["loss"]))
+        with pytest.raises(AssertionError, match="kernel wrapper"):
+            M.forward(_tree(jp, cfg), cfg, tb)
+
+
+def test_kernel_wrappers_refuse_autograd():
+    """Each ctypes wrapper raises under grad mode when a floating input
+    requires grad, naming the plain route, before it looks at the device;
+    without grad mode it goes on to its own checks (a CPU tensor is not
+    what it takes)."""
+    x = torch.zeros((1, 4, 2, 32))
+    seq = torch.zeros((1, 4, 16))
+    calls = {
+        "flash_attention": lambda t: flash_kernel.flash_attention(t, x, x),
+        "rwkv6_scan": lambda t: wkv_kernel.rwkv6_scan(t, x, x, x, torch.zeros((4, 32))),
+        "mamba_scan": lambda t: scan_kernel.mamba_scan(seq, seq, torch.zeros((1, 4, 16)), t,
+                                                       torch.zeros((16, 16)), torch.zeros(16)),
+        "fedsem_objective": lambda t: obj_kernel.objective_batch(
+            *([torch.zeros((1, 2, 3))] * 3), t, *([torch.zeros((1, 3))] * 7),
+            1.0, 1.0, 1.0, 0.6, 0.4, xi=1e-28, eta=10.0),
+    }
+    trainable = {"flash_attention": x, "rwkv6_scan": x, "mamba_scan": torch.zeros((1, 4, 16)),
+                 "fedsem_objective": torch.zeros((1, 2))}
+    for name, call in calls.items():
+        t = trainable[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=r"use_kernel=False"):
+            call(t)
+        with torch.no_grad(), pytest.raises(ValueError):
+            call(t)
+
+
+def test_loss_with_kernels_refuses_trainable_leaves_on_the_cpu():
+    _, jp, cfg = _model("qwen2_5_3b")
+    _, tb = _batches(cfg, 7, 1)[0]
+    tree = {k: v for k, v in _tree(jp, cfg).items()}
+    tree["embed"] = tree["embed"].requires_grad_(True)
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA tensors"):
+        M.loss_fn(tree, cfg, tb, use_kernel=True)
+
+
+def test_train_cli_runs():
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2_5_3b", "--smoke",
+         "--steps", "3", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=root,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    assert "step    0 loss" in out and "step    2 loss" in out and out.rstrip().endswith("done")
