@@ -9,10 +9,10 @@ the CPU in place of the card):
 1. build the CUDA kernels of `repro_torch.kernels` (`fedsem_objective`,
    `flash_attention`, `rwkv6_scan`, `mamba_scan`) from the sources in this
    checkout, one nvcc (sm_90a) each, all at once, and print ptxas' report;
-   the flash library's bf16 kernel (one instantiation per head dim) must
-   hold `HGMMA` (wgmma) instructions in its SASS (`cuobjdump -sass`); the
-   WKV6 and selective-scan kernels' registers are printed, and no
-   instantiation of either may spill;
+   the flash library's bf16 kernel (one instantiation per head dim; hd 80's
+   at width 128) must hold `HGMMA` (wgmma) instructions in its SASS
+   (`cuobjdump -sass`); the WKV6, selective-scan and flash kernels'
+   registers are printed, and no instantiation of any may spill;
 2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
    selection, (48, 1, 10) for the per-iteration trace), at a large-G case
@@ -40,7 +40,13 @@ the CPU in place of the card):
    Gemma-2 2B layer shapes (B = 1, S = 8192, H 8, KV 4, hd 256, bf16; global
    and window 4096, softcap 50), the Qwen2.5-3B shape (H 16, KV 2, hd 128)
    and the Jamba-1.5-Large attention layer (S = 4096, H 64, KV 8, hd 128,
-   bf16). Tolerance, absolute plus relative: float32 the JAX tests' own
+   bf16), and phase 19's layers: HuBERT X-Large's (B 4, S 1500, H 16, KV
+   16, hd 80, bidirectional; bf16 and float32: hd 80 runs at width 128 in
+   bf16 and 96 in float32, and that design's own floor, 128/80 of the
+   operations, is printed beside the bound), StarCoder2-3B's (S 8192, H 24,
+   KV 2, hd 128), Pixtral-12B's (S 8192, H 32, KV 8, hd 128) and Gemma-2
+   9B's (S 8192, H 16, KV 8, hd 256, softcap 50; global and window 4096).
+   Tolerance, absolute plus relative: float32 the JAX tests' own
    2e-5; bfloat16 one bf16 ulp (rtol 2**-7, atol 1e-4): the plain version
    keeps the probabilities P in float32 for P V, and the bf16 kernel keeps
    them to about 2^-17 (P V = P_hi V + P_lo V, two bf16 products), so the
@@ -236,13 +242,28 @@ the CPU in place of the card):
    leaf's sizes, sparsified at rho 0.3, keep exactly the entries at or
    above their thresholds, within one of 0.3 n. The round's wall split
    into the allocation, the sparsification and the rest, the leaves whose
-   threshold sits on a tie, and the peak memory are printed.
+   threshold sits on a tie, and the peak memory are printed;
+19. the remaining dense configs and the stub frontends, each at its
+   published widths and depth in bfloat16 from a seeded `torch.Generator`
+   (`MODEL_PATHS`), as phases 5-6: `gemma2_9b` (B 1, S 8192; 42 flash
+   launches), `starcoder2_3b` (B 1, S 8192; 30), `hubert_xlarge` (audio:
+   B 4, S 1500 frame embeddings, bidirectional, hd 80; 48; logits (4,
+   1500, 504); no `ServeLoop`: an encoder has no decode step) and
+   `pixtral_12b` (vision: B 1, S 8192 tokens with 1024 patch embeddings
+   over the leading positions; 40). The batch follows
+   `specs.input_specs` (`lm_batch`); the parameter count is read from the
+   tensors; a warm prefill is profiled. The yardstick gates of phase 5
+   run at full depth for StarCoder2 and HuBERT (HuBERT's one-ulp
+   perturbation moves its frame projection: it reads no embedding) and on
+   a 4-layer cut of the same widths for Gemma-2 9B and Pixtral
+   (`MODEL_REDUCED` lists each cut).
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
 and every other kernel never; the allocator paths (3, 13, 14, 15, 16 and 18)
 launch the objective kernel and no other; the training path (17) launches
-none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17 and 18) is
+none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17, 18 and each
+model of 19) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after. With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
@@ -311,12 +332,22 @@ LM_F32_ULP_FACTOR = 2.0
 KERNEL_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "rwkv6_scan": "wkv6_fwd_kernel",
                   "mamba_scan": "mamba_scan_fwd_kernel"}
 #: the main path's instantiation of the WKV6 kernel (bf16 r/k/v, float32 w
-#: and y, hd 64) and of the selective scan (bf16 x and y, float32 dt, bf16
-#: B/C, N 16), as they appear in the mangled names ptxas reports
+#: and y, hd 64), of the selective scan (bf16 x and y, float32 dt, bf16
+#: B/C, N 16) and of flash, as they appear in the mangled names ptxas reports
 MAIN_INSTANTIATION = {"rwkv6_scan": "wkv6_fwd_kernelI13__nv_bfloat16ffLi64E",
-                      "mamba_scan": "mamba_scan_fwd_kernelI13__nv_bfloat16fS1_Li16E"}
+                      "mamba_scan": "mamba_scan_fwd_kernelI13__nv_bfloat16fS1_Li16E",
+                      # the bf16 tensor-core kernel at Gemma-2's hd 256
+                      "flash_attention": "flash_fwd_kernel_sm90ILi256ELi256E"}
 #: every kernel of the port, by module name under `repro_torch.kernels`
 KERNELS = ("fedsem_objective", "flash_attention", "rwkv6_scan", "mamba_scan")
+#: one-cycle device sleeps (`torch.cuda._sleep`; the symbol of their kernel)
+#: that `profile_prefill` launches inside the profile before the prefill: the
+#: profiler drops a profile's leading device records, more of them the longer
+#: the process has run profiles (tools/torch_profile_repeat.py: 54 of a
+#: Gemma-2 2B prefill's first kernels after 13 minutes, layer 0's flash
+#: launch among them twice in 81 profiles; none behind 3000 of these sleeps)
+PROFILE_LEAD_IN = 3000
+LEAD_IN_SYMBOL = "spin_kernel"
 #: the kernel a prefill launches once for each layer of a block kind
 KERNEL_OF_KIND = {"attn": "flash_attention", "attn_local": "flash_attention",
                   "rwkv": "rwkv6_scan", "mamba": "mamba_scan"}
@@ -329,6 +360,25 @@ LM_PATHS = (("gemma2_2b", 8192, {}),                  # phases 5-6 (> the 4096 w
             # phases 11-12: one period, the MoE FFNs dense (ROADMAP item 12
             # ports the experts; one period with them is 90 GB in bf16)
             ("jamba_1_5_large_398b", 4096, dict(n_layers=8, n_experts=0, top_k=0)))
+#: phase 19: the models at their published widths and depths in bf16, (arch,
+#: B, S, the yardsticks' cut: `ModelConfig.scaled` arguments, or None for
+#: the full depth); the inputs follow `specs.input_specs`
+MODEL_PATHS = (("gemma2_9b", 1, 8192, dict(n_layers=4)),
+               ("starcoder2_3b", 1, 8192, None),
+               ("hubert_xlarge", 4, 1500, None),     # 30 s of 50 Hz frames
+               ("pixtral_12b", 1, 8192, dict(n_layers=4)))
+#: phase 19's cuts of scale, by arch
+MODEL_REDUCED = {
+    "gemma2_9b": ["batch and sequence: prefill_32k's (32, 32768) -> (1, 8192)",
+                  "the yardsticks (kernel vs plain bf16; float32 layer by layer; float32 kernel vs "
+                  "a one-ulp embedding): n_layers 42 -> 4 (the float32 model is 37 GB beside 8.4 GB "
+                  "of float32 logits)"],
+    "starcoder2_3b": ["batch and sequence: prefill_32k's (32, 32768) -> (1, 8192)"],
+    "hubert_xlarge": ["batch and sequence: prefill_32k's (32, 32768) -> (4, 1500): 30 s of "
+                      "50 Hz frames each"],
+    "pixtral_12b": ["batch and sequence: prefill_32k's (32, 32768) -> (1, 8192), 1024 patches",
+                    "the yardsticks: n_layers 40 -> 4 (the float32 model is 49 GB)"],
+}
 #: the exit codes for no card and for no port beside the script
 EXIT_NO_CARD, EXIT_NO_PORT = 4, 5
 RTOL, ATOL = 5e-7, 1e-5
@@ -480,7 +530,8 @@ def bound(B, G, N, check_feasible):
 def flash_tensor_core_sass(lib_path) -> dict:
     """Phase 1's proof that the bf16 flash kernel runs on the tensor cores:
     the `HGMMA` (wgmma) instructions in the SASS (``cuobjdump -sass``) of
-    each instantiation of its `flash_fwd_kernel_sm90`. Returns {hd: count}."""
+    each instantiation of its `flash_fwd_kernel_sm90` (one per head dim: the
+    template's second argument). Returns {hd: count}."""
     from repro_torch.kernels.build import nvcc
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
@@ -490,7 +541,7 @@ def flash_tensor_core_sass(lib_path) -> dict:
     counts, hd = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"flash_fwd_kernel_sm90ILi(\d+)E", line)
+            found = re.search(r"flash_fwd_kernel_sm90ILi\d+ELi(\d+)E", line)
             hd = int(found.group(1)) if found else None
             if hd is not None:
                 counts[hd] = 0
@@ -719,15 +770,17 @@ def attention_pairs(S: int, causal: bool, window) -> int:
     return total
 
 
-def flash_bound(B, S, H, KV, hd, dtype, causal, window):
+def flash_bound(B, S, H, KV, hd, dtype, causal, window, op_hd=None):
     """(ms, 'bytes'|'operations'): 4 * hd operations per unmasked pair and
     head over the peak of the input type (bf16 tensor cores; float32 outside
-    them), against q, k, v read once and the output written once."""
+    them), against q, k, v read once and the output written once. With
+    ``op_hd`` the operations are counted at that head dim (a padded
+    design's own floor)."""
     import torch
 
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = item * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    flops = 4 * hd * B * H * attention_pairs(S, causal, window)
+    flops = 4 * (op_hd or hd) * B * H * attention_pairs(S, causal, window)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -747,6 +800,14 @@ FLASH_CASES = [
     ("gemma2_2b local", (1, 8192, 8, 4, 256), "bfloat16", True, 4096, 50.0),
     ("qwen2_5_3b", (1, 8192, 16, 2, 128), "bfloat16", True, None, None),
     ("jamba_1_5_large_398b attn", (1, 4096, 64, 8, 128), "bfloat16", True, None, None),
+    # phase 19's layers: HuBERT's (bidirectional, hd 80 at a padded width,
+    # 30 s of 50 Hz frames: the last 128-row block ragged)
+    ("hubert_xlarge", (4, 1500, 16, 16, 80), "bfloat16", False, None, None),
+    ("hubert_xlarge float32", (4, 1500, 16, 16, 80), "float32", False, None, None),
+    ("starcoder2_3b", (1, 8192, 24, 2, 128), "bfloat16", True, None, None),
+    ("pixtral_12b", (1, 8192, 32, 8, 128), "bfloat16", True, None, None),
+    ("gemma2_9b global", (1, 8192, 16, 8, 256), "bfloat16", True, None, 50.0),
+    ("gemma2_9b local", (1, 8192, 16, 8, 256), "bfloat16", True, 4096, 50.0),
 ]
 
 
@@ -828,6 +889,13 @@ def phase_flash(device):
         rec["bound_ms"], rec["bound_by"] = flash_bound(B, S, H, KV, hd, dtype, causal, window)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["library_factor"] = rec["ms"] / rec["library_ms"]
+        width = kernel.instantiated_hd(hd, dtype)
+        if width != hd:                                   # the padded design's own floor
+            rec["padded_width"] = width
+            rec["padded_bound_ms"], _ = flash_bound(B, S, H, KV, hd, dtype, causal, window, width)
+            print(f"flash[{name}]: hd {hd} at width {width}: its own floor "
+                  f"{rec['padded_bound_ms']:.5f} ms ({width}/{hd} of the operations), "
+                  f"{100 * rec['padded_bound_ms'] / rec['ms']:.2f}% of it reached", flush=True)
         cases.append(rec)
         print(f"flash[{name}] {tuple(rec['shape'])} {dt}: kernel {rec['ms']:.5f} ms, plain "
               f"{rec['plain_ms']:.5f} ms, {library} {rec['library_ms']:.5f} ms, bound "
@@ -1042,23 +1110,47 @@ def phase_scan(device):
     return cases
 
 
-def profile_prefill(M, params, cfg, tokens, want):
-    """One warm kernel prefill under `torch.profiler`: each of its kernels'
-    device time and launches (``want``: the launches each kernel must show),
-    the matrix products' device time, the device's busy time (its own events
-    only, as in `phase_profile`) and the top entries."""
+def lm_batch(cfg, B: int, S: int, gen) -> dict:
+    """A prefill batch of `repro_torch.launch.specs.input_specs`' layout at
+    (B, S), drawn from ``gen`` on its device: tokens uniform over the
+    vocabulary, frame and patch embeddings standard normal in their spec's
+    type (bf16); no labels or mask, which a prefill does not read."""
+    import torch
+
+    from repro_torch.launch import specs
+
+    out = {}
+    for name, spec in specs.input_specs(cfg, "prefill_32k", B, S).items():
+        if name == "tokens":
+            out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen, device=gen.device)
+        elif name in ("frame_embeds", "patch_embeds"):
+            out[name] = torch.randn(spec.shape, generator=gen, device=gen.device).to(spec.dtype)
+    return out
+
+
+def profile_prefill(M, params, cfg, batch, want):
+    """One warm kernel prefill of ``batch`` under `torch.profiler`, after
+    `PROFILE_LEAD_IN` one-cycle device sleeps under it (left out of every
+    figure): each of its kernels' device time and launches (``want``: the
+    launches each kernel must show), the matrix products' device time, the
+    device's busy time (its own events only, as in `phase_profile`) and the
+    top entries."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
+        out = M.prefill(params, cfg, batch, use_kernel=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del out
-    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and LEAD_IN_SYMBOL not in e.key]
     dev_ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
     products = [e for e in on_dev if any(m in e.key.lower() for m in PRODUCT_MARKS)]
     busy = dev_ms(on_dev)
@@ -1075,13 +1167,14 @@ def profile_prefill(M, params, cfg, tokens, want):
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
 
 
-def layer_by_layer(M, params, cfg, tokens, rows):
+def layer_by_layer(M, params, cfg, batch, rows):
     """The plain prefill run one layer at a time, each layer also through its
     kernel route on the same input (the model's own layer functions). Returns
-    (plain logits at ``rows``, per layer (max |kernel - plain|, the largest
-    ratio of that gap to atol + rtol |plain|))."""
+    (plain logits at ``rows`` of every sequence, (B x rows, V), per layer
+    (max |kernel - plain|, the largest ratio of that gap to atol + rtol
+    |plain|))."""
     atol, rtol = LM_LAYER_TOL
-    x, positions = M._embed(params, cfg, {"tokens": tokens})
+    x, positions = M._embed(params, cfg, batch)
     gaps = []
     for blk in params.layers:
         want = M._apply_block(blk, cfg, x, positions, False)
@@ -1090,26 +1183,30 @@ def layer_by_layer(M, params, cfg, tokens, rows):
         gaps.append((float(err.max()), float((err / (atol + rtol * want.abs())).max())))
         del got, err
         x = want
-    return M._head(params, cfg, x[:, rows])[0].float(), gaps
+    logits = M._head(params, cfg, x[:, rows]).float()
+    return logits.reshape(-1, logits.shape[-1]), gaps
 
 
-def perturb_one_ulp(params, seed):
-    """Move every entry of the embedding table one ulp up or down at random."""
+def perturb_one_ulp(t, seed):
+    """Move every entry of ``t`` (the embedding table; HuBERT's frame
+    projection) one ulp up or down at random."""
     import torch
 
-    e = params.embed
-    gen = torch.Generator(device=e.device).manual_seed(seed)
-    up = torch.rand(e.shape, generator=gen, device=e.device) < 0.5
-    inf = torch.tensor(float("inf"), dtype=e.dtype, device=e.device)
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
     with torch.no_grad():
-        e.copy_(torch.nextafter(e, torch.where(up, inf, -inf)))
+        t.copy_(torch.nextafter(t, torch.where(up, inf, -inf)))
 
 
-def phase_lm(device, arch, S, cut):
+def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
     """Full-width ``arch`` (cut by ``cut``, `ModelConfig.scaled` arguments)
-    prefill of S tokens through its kernels (one launch per layer of each
-    kernel's block kind) and `ServeLoop` on the same model (phases 5-6, 8-9
-    and 11-12). Returns (report, each kernel's launches on the path)."""
+    prefill of a (B, S) batch (`lm_batch`) through its kernels (one launch
+    per layer of each kernel's block kind) and, for a decoder, `ServeLoop`
+    on the same model (phases 5-6, 8-9, 11-12 and 19). The yardsticks run
+    on the same model, or, with ``yard_cut``, on its cut
+    ``cfg.scaled(**yard_cut)`` (phase 19). Returns (report, each kernel's
+    launches on the path)."""
     import importlib
 
     import torch
@@ -1122,6 +1219,8 @@ def phase_lm(device, arch, S, cut):
                for name in KERNELS}
     cfg = get_config(arch).scaled(**cut)
     check(cfg.dtype == "bfloat16", f"{arch} is not a bf16 config")
+    decoder = cfg.arch_type != "audio"
+    out_dim = cfg.vocab if decoder else cfg.n_classes
     kinds = M.layer_kinds(cfg)
     want = {name: sum(KERNEL_OF_KIND[k] == name for k in kinds) for name in KERNELS}
     mine = [name for name, n in want.items() if n]        # the path's kernels
@@ -1134,37 +1233,41 @@ def phase_lm(device, arch, S, cut):
     print(f"{arch}: {n_params / 1e9:.4f} B parameters in bf16 on the card "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), init {init_s:.2f} s", flush=True)
     data = torch.Generator(device=device).manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab, (1, S), generator=data, device=device)
+    batch = lm_batch(cfg, B, S, data)
     prompts = torch.randint(0, cfg.vocab, (8, 8), generator=data, device=device).tolist()
 
     for k in kernels.values():                            # the path starts here
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits_k = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
+    logits_k = M.prefill(params, cfg, batch, use_kernel=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = {name: k.launches for name, k in kernels.items()}
-    loop = ServeLoop(cfg, params, batch_slots=4, max_len=256)
-    t0 = time.perf_counter()
-    results, stats = loop.run(prompts, max_new=16)
-    serve_s = time.perf_counter() - t0
+    stats, serve_s = None, None
+    if decoder:                                           # an encoder has no decode step
+        loop = ServeLoop(cfg, params, batch_slots=4, max_len=256)
+        t0 = time.perf_counter()
+        results, stats = loop.run(prompts, max_new=16)
+        serve_s = time.perf_counter() - t0
+        del loop
     launches = {name: k.launches for name, k in kernels.items()}   # ... and ends here
     check(prefill_launches == want,
           f"{arch} prefill launched the kernels {prefill_launches} times, want {want}")
     check(launches == prefill_launches, f"{arch} ServeLoop launched a kernel: {launches}")
-    check(tuple(logits_k.shape) == (1, S, cfg.vocab), f"prefill logits shape {tuple(logits_k.shape)}")
+    check(tuple(logits_k.shape) == (B, S, out_dim), f"prefill logits shape {tuple(logits_k.shape)}")
     check(bool(torch.isfinite(logits_k).all()), "prefill logits are not finite")
-    check(sorted(results) == list(range(8)), f"ServeLoop finished requests {sorted(results)}")
-    for i, toks in results.items():
-        check(len(toks) == 16 and all(0 <= t < cfg.vocab for t in toks),
-              f"ServeLoop request {i}: {len(toks)} tokens, want 16 in [0, {cfg.vocab})")
-    ms_step = 1e3 * sum(stats["step_times"]) / stats["steps"]
     counts = ", ".join(f"{want[name]} {name}" for name in mine)
-    print(f"{arch} prefill(use_kernel=True) B=1 S={S}: {prefill_s:.3f} s wall (first call), "
-          f"launches: {counts}; finite logits", flush=True)
-    print(f"{arch} ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in "
-          f"{serve_s:.3f} s, {ms_step:.2f} ms/step", flush=True)
+    print(f"{arch} prefill(use_kernel=True) B={B} S={S}: {prefill_s:.3f} s wall (first call), "
+          f"launches: {counts}; finite logits {tuple(logits_k.shape)}", flush=True)
+    if decoder:
+        check(sorted(results) == list(range(8)), f"ServeLoop finished requests {sorted(results)}")
+        for i, toks in results.items():
+            check(len(toks) == 16 and all(0 <= t < cfg.vocab for t in toks),
+                  f"ServeLoop request {i}: {len(toks)} tokens, want 16 in [0, {cfg.vocab})")
+        ms_step = 1e3 * sum(stats["step_times"]) / stats["steps"]
+        print(f"{arch} ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in "
+              f"{serve_s:.3f} s, {ms_step:.2f} ms/step", flush=True)
 
     # the yardsticks: the plain kernels' versions in bf16, and the same model in float32
     rows = torch.cat([torch.arange(0, S, 64, device=device), torch.tensor([S - 1], device=device)])
@@ -1173,17 +1276,17 @@ def phase_lm(device, arch, S, cut):
     def run(p, c, use_kernel, name):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = M.prefill(p, c, {"tokens": tokens}, use_kernel=use_kernel)
+        out = M.prefill(p, c, batch, use_kernel=use_kernel)
         torch.cuda.synchronize()
         timed[name] = time.perf_counter() - t
-        sub = out[0, rows].float().clone()
+        sub = out[:, rows].float()
         del out
-        return sub
+        return sub.reshape(-1, sub.shape[-1])
 
-    sub_k = logits_k[0, rows].float().clone()
+    sub_k = logits_k[:, rows].float().reshape(-1, out_dim)
     del logits_k
     run(params, cfg, True, "kernel_s")                    # a second, warm call
-    prof = profile_prefill(M, params, cfg, tokens, {name: want[name] for name in KERNEL_SYMBOLS})
+    prof = profile_prefill(M, params, cfg, batch, {name: want[name] for name in KERNEL_SYMBOLS})
     warm_ms = 1e3 * timed["kernel_s"]
     busy = prof["device_busy_ms"]
     shares = "; ".join(
@@ -1196,31 +1299,39 @@ def phase_lm(device, arch, S, cut):
           f"{100 * prof['products_device_ms'] / busy:.2f}% of busy", flush=True)
     for key, ms, count in prof["top"]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key[:100]}")
+    if yard_cut is not None:                              # the yardsticks' own model
+        del params
+        torch.cuda.empty_cache()
+        cfg = cfg.scaled(**yard_cut)
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+        sub_k = run(params, cfg, True, "cut_kernel_s")
     sub_p = run(params, cfg, False, "plain_s")
-    del params, loop
+    del params
     torch.cuda.empty_cache()
     cfg32 = cfg.scaled(dtype="float32")
     params32 = M.init_params(cfg32, torch.Generator(device=device).manual_seed(seed))
     sub_fk = run(params32, cfg32, True, "float32_kernel_s")
     t0 = time.perf_counter()
-    sub_f, layer_gaps = layer_by_layer(M, params32, cfg32, tokens, rows)
+    sub_f, layer_gaps = layer_by_layer(M, params32, cfg32, batch, rows)
     torch.cuda.synchronize()
     timed["float32_layer_by_layer_s"] = time.perf_counter() - t0
-    perturb_one_ulp(params32, seed + 2)
+    perturb_one_ulp(params32.embed if decoder else params32.frontend_proj, seed + 2)
     sub_fq = run(params32, cfg32, False, "float32_ulp_plain_s")
     del params32
     torch.cuda.empty_cache()
     gap = lambda a, b: float((a - b).abs().max())
-    worst_row = lambda a, b: int(rows[int((a - b).abs().amax(-1).argmax())])
+    worst_row = lambda a, b: int(rows[int((a - b).abs().amax(-1).argmax()) % rows.numel()])
     gap_kp, gap_pf, gap_kf = gap(sub_k, sub_p), gap(sub_p, sub_f), gap(sub_k, sub_f)
     gap_f32, gap_ulp = gap(sub_fk, sub_f), gap(sub_fq, sub_f)
     layer_err = max(g[0] for g in layer_gaps)
     layer_ratio = max(g[1] for g in layer_gaps)
-    print(f"{arch} prefill logits at {rows.numel()} positions (|logit| <= "
+    moved = "embedding" if decoder else "frame projection"
+    where = "" if yard_cut is None else f" (the yardsticks on {cfg.n_layers} layers)"
+    print(f"{arch} prefill logits at {rows.numel()} positions{where} (|logit| <= "
           f"{float(sub_f.abs().max()):.3f}): kernel vs plain bf16 {gap_kp:.5g} (position "
           f"{worst_row(sub_k, sub_p)}), plain bf16 vs float32 {gap_pf:.5g} (position "
           f"{worst_row(sub_p, sub_f)}), kernel vs float32 {gap_kf:.5g}; in float32: kernel vs "
-          f"plain {gap_f32:.5g} (position {worst_row(sub_fk, sub_f)}), one-ulp embedding vs "
+          f"plain {gap_f32:.5g} (position {worst_row(sub_fk, sub_f)}), one-ulp {moved} vs "
           f"plain {gap_ulp:.5g} (position {worst_row(sub_fq, sub_f)}); each layer's kernel route "
           f"on the plain input: max abs err {layer_err:.3g}, at most {layer_ratio:.3g} of atol "
           f"{LM_LAYER_TOL[0]} + rtol {LM_LAYER_TOL[1]}; wall: kernel {timed['kernel_s']:.3f} s, "
@@ -1234,16 +1345,38 @@ def phase_lm(device, arch, S, cut):
           f"({layer_ratio} of the tolerance)")
     check(gap_f32 <= LM_F32_ULP_FACTOR * gap_ulp,
           f"{arch}: float32 kernel prefill differs from the plain one by {gap_f32}, more than "
-          f"{LM_F32_ULP_FACTOR} x a one-ulp embedding perturbation's {gap_ulp}")
-    report = dict(arch=arch, cut=cut, tokens=S, params=n_params, init_s=init_s,
-                  prefill_first_s=prefill_s, **timed, prefill_launches=prefill_launches, profile=prof,
+          f"{LM_F32_ULP_FACTOR} x a one-ulp {moved} perturbation's {gap_ulp}")
+    report = dict(arch=arch, cut=cut, yard_cut=yard_cut, batch=B, tokens=S, params=n_params,
+                  init_s=init_s, prefill_first_s=prefill_s, **timed,
+                  prefill_launches=prefill_launches, profile=prof,
                   kernel_share_of_warm_prefill={name: prof["kernel_device_ms"][name] / warm_ms
                                                 for name in mine},
                   gap_kernel_plain=gap_kp, gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
                   gap_float32_kernel_plain=gap_f32, gap_float32_one_ulp=gap_ulp,
-                  layer_gaps=layer_gaps,
-                  serve_steps=stats["steps"], serve_s=serve_s, serve_ms_per_step=ms_step)
+                  layer_gaps=layer_gaps)
+    if decoder:
+        report.update(serve_steps=stats["steps"], serve_s=serve_s, serve_ms_per_step=ms_step)
     return report, launches
+
+
+def phase_models(device):
+    """Phase 19: each of `MODEL_PATHS` through `phase_lm` at its published
+    widths and depth (its yardsticks on a cut where one is given). Returns
+    (reports by arch, each kernel's launches by arch)."""
+    import torch
+
+    reports, launches = {}, {}
+    t_phase = time.perf_counter()
+    for arch, B, S, yard_cut in MODEL_PATHS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep, n = phase_lm(device, arch, S, {}, B=B, yard_cut=yard_cut)
+        rep.update(wall_s=time.perf_counter() - t0, reduced=MODEL_REDUCED[arch])
+        reports[arch], launches[arch] = rep, n
+        print(f"{arch}: phase 19 part {rep['wall_s']:.2f} s; reduced: "
+              + "; ".join(MODEL_REDUCED[arch]), flush=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return reports, launches
 
 
 def zero_launches():
@@ -2340,9 +2473,9 @@ def main() -> int:
         print(f"build: {path.name} (all builds together: {build_s:.2f} s)", flush=True)
         for line in log.strip().splitlines():
             print(f"  ptxas: {line.strip()}")
-    # the WKV6 and scan kernels: registers of every instantiation, no spills
+    # the WKV6, scan and flash kernels: registers of every instantiation, no spills
     ptxas = {}
-    for k in (wkv_kernel, scan_kernel):
+    for k in (wkv_kernel, scan_kernel, flash_kernel):
         name = k.__name__.split(".")[-2]
         rep = ptxas_report(built[all_kernels.index(k)][1])
         if not rep:
@@ -2413,6 +2546,10 @@ def main() -> int:
 
     # phase 18: federated LM fine-tuning over the allocator
     fedlm, fedlm_launches = phase_federated_lm(device)
+
+    # phase 19: Gemma-2 9B, StarCoder2-3B, HuBERT X-Large and Pixtral-12B
+    models, model_launches = phase_models(device)
+    paths.update(model_launches)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
                          "exhaustive": oracle_launches, "serving": serving_launches,
                          "fedsem": fedsem_launches, "federated_lm": fedlm_launches}
@@ -2445,6 +2582,7 @@ def main() -> int:
         "bound_ms": main_flash["bound_ms"],
         "bound_by": main_flash["bound_by"],
         "library_ms": main_flash["library_ms"],
+        "ptxas": ptxas.get("flash_attention"),
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",
@@ -2486,7 +2624,7 @@ def main() -> int:
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
                  oracle=oracle, serving=serving, fedsem=fedsem, training=training,
-                 federated_lm=fedlm, record=record, card=smi),
+                 federated_lm=fedlm, models=models, record=record, card=smi),
             indent=1, default=str))
     print(json.dumps(record))
     print(smi[0])

@@ -79,8 +79,8 @@ def lm_tree_from_numpy(tree: dict, cfg, device="cuda", dtype=None) -> dict:
     laid out like it (an optimizer's moments).
 
     ``tree`` is `repro.models.model.init_params`'s pytree as numpy arrays:
-    ``embed``, ``final_ln``, optional ``head``, and ``stages[name]["b{j}"]``
-    whose leaves carry a leading period axis. Arrays go through float32
+    ``embed``, ``final_ln``, optional ``head`` and ``frontend_proj``, and
+    ``stages[name]["b{j}"]`` whose leaves carry a leading period axis. Arrays go through float32
     (exact for bfloat16, which numpy holds as ``ml_dtypes.bfloat16``) and
     then to ``dtype``; with None, to the config's dtype, except the Mamba
     leaves the reference keeps in float32 (`models.mamba.FLOAT32_LEAVES`),
@@ -100,7 +100,7 @@ def lm_tree_from_numpy(tree: dict, cfg, device="cuda", dtype=None) -> dict:
         to = leaf_dtype(name, dt) if mamba and dtype is None else dt
         return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=dev, dtype=to)
 
-    keys = ("embed", "final_ln", "head", "stages")
+    keys = ("embed", "final_ln", "head", "frontend_proj", "stages")
     return {k: convert(tree[k]) for k in keys if k in tree}
 
 

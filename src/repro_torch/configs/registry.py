@@ -5,7 +5,7 @@ configuration of the reference, as plain data (``hetero_classes`` sizes its
 device classes from all ten). Which of them the port can build is decided at
 model construction: `models.model.init_params` raises `NotImplementedError`
 naming the ROADMAP.md §1 item that ports what a config needs (MoE and MLA
-layers, the frontends, and the configs listed in ``NOT_PORTED``).
+layers, and the configs listed in ``NOT_PORTED``).
 ``jamba_1_5_large_398b`` is the published config, with its 16 experts; the
 port runs its dense cut, ``CONFIG.scaled(n_experts=0, top_k=0)``.
 ``fedsem_autoencoder`` is the paper's own codec: its config is a
@@ -36,10 +36,6 @@ ARCHS = (
 NOT_PORTED = {
     "arctic_480b": "item 12 (MoE and MLA)",
     "deepseek_v3_671b": "item 12 (MoE and MLA)",
-    "starcoder2_3b": "item 11b (the remaining dense configs, frontends and meshes)",
-    "gemma2_9b": "item 11b (the remaining dense configs, frontends and meshes)",
-    "hubert_xlarge": "item 11b (the remaining dense configs, frontends and meshes; audio frontend)",
-    "pixtral_12b": "item 11b (the remaining dense configs, frontends and meshes; vision frontend)",
 }
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}

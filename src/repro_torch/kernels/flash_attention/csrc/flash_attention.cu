@@ -53,6 +53,10 @@
 //   * Kv tiles wholly outside the block's causal/window band are never
 //     loaded; a tile outside one warpgroup's band is skipped by it.
 //   * Shared memory: 41 KB (hd 32) to 193 KB (hd 256).
+//   * hd 80 (HuBERT's) runs at width 128 (its own instantiation, HD_IN 80):
+//     the TMA maps span the true hd, so TMA fills columns 80-127 with zeros,
+//     Q K^T gains only exact zeros, and the stores stop at hd. It does
+//     128/80 of hd 80's tensor-core work.
 //   Blocks are launched longest rows first (grid y reversed).
 //
 // float32: flash_fwd_kernel, the first kernel of this port, on the CUDA
@@ -71,6 +75,12 @@
 //     the correction factor in shared memory.
 //   * P V: warp w owns rows 8w..8w+7, lane owns columns lane + 32 i; the
 //     output accumulator (8 x hd/32 floats a thread) lives in registers.
+//     A tile's P V is summed apart and then added, acc corr + part: one
+//     chain over all 8192 keys of StarCoder2-3B's layers strayed from the
+//     plain version's chunked sums by 1.1x chip_smoke.py's per-layer float32
+//     gate; two short chains stay near half of it.
+//   * hd 80 runs at width 96 (3 output columns a lane): columns 80-95 load
+//     as zeros and are never stored.
 //   * Shared memory: 26 KB (hd 32) to 142 KB (hd 256): above the 48 KB
 //     default, the launcher raises the block's dynamic shared memory limit
 //     (on every launch, so it holds on whichever device runs it).
@@ -115,9 +125,13 @@ struct Smem {  // sizes in floats
   static constexpr size_t BYTES = sizeof(float) * TOTAL;
 };
 
-template <typename T, int HD>
+// HD: the width the tiles are built for; HD_IN <= HD: the head dim of the
+// tensors (hd 80 at width 96: columns 80-95 load as zeros, exact zeros in
+// q . k, and are never stored)
+template <typename T, int HD, int HD_IN>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   constexpr int CPT = HD / 32;  // output columns per thread
+  constexpr int hd = HD_IN;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + Smem<HD>::Q;
@@ -143,7 +157,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
     const int qpos = q0 + r;
-    Qs[d * (BQ + 1) + r] = qpos < S ? to_f(qg[qpos * p.sq[1] + d]) : 0.f;
+    Qs[d * (BQ + 1) + r] = qpos < S && d < hd ? to_f(qg[qpos * p.sq[1] + d]) : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
@@ -171,7 +185,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
       const int c = i / HD, d = i % HD;
       const int kpos = k0 + c;
       float kx = 0.f, vx = 0.f;
-      if (kpos < S) {
+      if (kpos < S && d < hd) {
         kx = to_f(kg[kpos * p.sk[1] + d]);
         vx = to_f(vg[kpos * p.sv[1] + d]);
       }
@@ -244,13 +258,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     }
     __syncthreads();
 
-    // acc = acc * corr + P V
+    // acc = acc * corr + P V, the tile's P V summed on its own first: two
+    // short chains (32 keys, then one term a tile) instead of one chain over
+    // every key, as the plain version's chunked products sum
+    float part[8][CPT];
 #pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const float corr = c_s[warp * 8 + rr];
+    for (int rr = 0; rr < 8; ++rr)
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) acc[rr][i] *= corr;
-    }
+      for (int i = 0; i < CPT; ++i) part[rr][i] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       float vv[CPT];
@@ -260,8 +275,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
       for (int rr = 0; rr < 8; ++rr) {
         const float pr = Ps[(warp * 8 + rr) * (BK + 1) + c];
 #pragma unroll
-        for (int i = 0; i < CPT; ++i) acc[rr][i] += pr * vv[i];
+        for (int i = 0; i < CPT; ++i) part[rr][i] += pr * vv[i];
       }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      const float corr = c_s[warp * 8 + rr];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) acc[rr][i] = fmaf(acc[rr][i], corr, part[rr][i]);
     }
   }
   __syncthreads();
@@ -274,13 +295,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     const float denom = fmaxf(l_s[r], 1e-20f);
 #pragma unroll
     for (int i = 0; i < CPT; ++i)
-      og[qpos * p.so[1] + lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
+      if (lane + 32 * i < hd) og[qpos * p.so[1] + lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HD_IN = HD>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<T, HD, HD_IN>;
   constexpr size_t bytes = Smem<HD>::BYTES;
   // on every launch: the limit is held per device, and the call is cheap and
   // allowed while a graph is being captured
@@ -297,6 +318,7 @@ int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
+    case 80: return launch<T, 96, 80>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     case 256: return launch<T, 256>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -71,7 +71,10 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+// HD: the width the tiles and products are built for; HD_IN <= HD: the head
+// dim of the tensors (TMA fills the columns past HD_IN with zeros, and the
+// stores stop there)
+template <int HD, int HD_IN>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -261,6 +264,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
     __nv_bfloat16* orow = og + row[r] * p.so[1] + col0;
 #pragma unroll
     for (int jj = 0; jj < HD / 8; ++jj) {
+      if (8 * jj >= HD_IN) break;  // the padded columns of a narrower head
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
           __floats2bfloat162_rn(o[4 * jj + 2 * r] / denom, o[4 * jj + 2 * r + 1] / denom);
     }
@@ -288,7 +292,7 @@ inline EncodeTiled encode_tiled() {
 
 // A 4-D map over (hd, seq, head, batch) of a bf16 tensor read by stride
 // (strides in elements; the head dim contiguous), boxes of (slab, rows).
-// Rows past the end of seq read as zeros.
+// Rows past the end of seq, and columns past hd, read as zeros.
 inline bool make_map(CUtensorMap* map, const void* base, int hd, int S, int heads, int B,
                      const long long* stride_bsh, int slab, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
@@ -303,17 +307,17 @@ inline bool make_map(CUtensorMap* map, const void* base, int hd, int S, int head
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HD_IN = HD>
 int launch(const void* q, const void* k, const void* v, const long long* sq, const long long* sk,
            const long long* sv, const Params& p, int B, cudaStream_t stream) {
   using C = Cfg<HD>;
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, HD, p.S, p.H, B, sq, C::SLAB, BQ) ||
-      !make_map(&tk, k, HD, p.S, p.KV, B, sk, C::SLAB, C::BK) ||
-      !make_map(&tv, v, HD, p.S, p.KV, B, sv, C::SLAB, C::BK))
+  if (!make_map(&tq, q, HD_IN, p.S, p.H, B, sq, C::SLAB, BQ) ||
+      !make_map(&tk, k, HD_IN, p.S, p.KV, B, sk, C::SLAB, C::BK) ||
+      !make_map(&tv, v, HD_IN, p.S, p.KV, B, sv, C::SLAB, C::BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_kernel_sm90<HD>;
+  auto kernel = flash_fwd_kernel_sm90<HD, HD_IN>;
   // on every launch: the limit is held per device, and the call is cheap and
   // allowed while a graph is being captured
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -324,12 +328,16 @@ int launch(const void* q, const void* k, const void* v, const long long* sq, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// hd 80 (HuBERT's) runs at width 128: TMA fills Q, K and V's columns 80-127
+// with zeros, so Q K^T gains exact zeros and P V's padded columns, zero, are
+// never stored.
 inline int dispatch_hd(const void* q, const void* k, const void* v, const long long* sq,
                        const long long* sk, const long long* sv, const Params& p, int B, int hd,
                        cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<32>(q, k, v, sq, sk, sv, p, B, stream);
     case 64: return launch<64>(q, k, v, sq, sk, sv, p, B, stream);
+    case 80: return launch<128, 80>(q, k, v, sq, sk, sv, p, B, stream);
     case 128: return launch<128>(q, k, v, sq, sk, sv, p, B, stream);
     case 256: return launch<256>(q, k, v, sq, sk, sv, p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

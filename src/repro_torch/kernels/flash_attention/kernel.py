@@ -26,9 +26,18 @@ launches = 0
 
 SOURCE = pathlib.Path(__file__).resolve().with_name("csrc") / "flash_attention.cu"
 NVCC_FLAGS = BASE_FLAGS
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+#: head dims the kernel takes
+HEAD_DIMS = (32, 64, 80, 128, 256)
+#: a head dim whose instantiation works at a greater width, by type: hd 80
+#: at 128 in the bf16 kernel (TMA fills the columns past 80 with zeros) and
+#: at 96 in the float32 kernel (masked loads and stores)
+PADDED = {torch.bfloat16: {80: 128}, torch.float32: {80: 96}}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def instantiated_hd(hd: int, dtype: torch.dtype) -> int:
+    """The width the instantiation that runs ``hd`` in ``dtype`` works at."""
+    return PADDED[dtype].get(hd, hd)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -59,7 +68,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """Attention of q (B, S, H, hd) over k/v (B, S, KV, hd) -> (B, S, H, hd).
 
     Float32 or bfloat16 CUDA tensors of one type on one card, the head dim
-    contiguous, hd in `HEAD_DIMS`, H a multiple of KV. bfloat16 goes to the
+    contiguous, hd in `HEAD_DIMS` (80 at a greater width, `PADDED`), H a
+    multiple of KV. bfloat16 goes to the
     tensor-core kernel, whose TMA loads want each of q, k, v to start on 16
     bytes and its (batch, seq, head) strides to be multiples of 8 elements,
     and at most 65535 blocks of 128 query rows; anything else raises (nothing

@@ -15,7 +15,9 @@ B and C as column views of ``x_proj``'s output in the model's type (the
 reference casts them to float32, which is exact), and it adds D x inside,
 in float32, where the reference adds it after its scan: both are
 (sum_n h C) + D x. Only h (B, d_inner, N) is carried; the (B, S, d_inner, N)
-tensor of every step's state is never built.
+tensor of every step's state is never built. With ``cfg.ssm_io_bf16`` x, dt,
+B and C reach the scan rounded to bf16, as the reference streams them (the
+math stays float32, and y keeps the model's type).
 """
 from __future__ import annotations
 
@@ -111,8 +113,15 @@ def mamba_forward(p, cfg, x_in, state=None, use_kernel="auto"):
                                  None if state is None else state["conv"])
     x = F.silu(x)
     dt, Bm, Cm = _ssm_inputs(p, cfg, x)
+    xs = x
+    if cfg.ssm_io_bf16:
+        # x keeps the model's type (y is cast to it, as the reference casts
+        # its y back), rounded to bf16: D x is the reference's bf16 x times D
+        bf16 = torch.bfloat16
+        xs = x.to(bf16).to(x.dtype)
+        dt, Bm, Cm = dt.to(bf16), Bm.to(bf16), Cm.to(bf16)
     A = -torch.exp(p["A_log"])                               # (di, N)
-    y, h = scan_ops.mamba_scan(x, dt, Bm, Cm, A, p["D"], None if state is None else state["h"],
+    y, h = scan_ops.mamba_scan(xs, dt, Bm, Cm, A, p["D"], None if state is None else state["h"],
                                use_kernel=use_kernel)
     out = (y * F.silu(z)) @ p["out_proj"]
     if state is None:

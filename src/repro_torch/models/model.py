@@ -2,11 +2,17 @@
 
 Counterpart of `repro.models.model` for ``attn``/``attn_local`` and
 ``mamba`` blocks with a dense FFN and for ``rwkv`` blocks (time mix and
-channel mix). The parameters are one tree, laid out as the reference's
-parameter pytree: ``embed``, ``final_ln``, optional ``head`` and
-``stages[name]["b{j}"]``, each leaf of a block stacked over the stage's
-periods, with the reference's parameter names (``ln``, ``attn.wq``,
-``ffn.w_gate``, ...). An `LM` holds that tree and its layers, each a
+channel mix), with the reference's stub frontends: audio (HuBERT) projects
+``batch["frame_embeds"]`` (B, S, frontend_dim) through ``frontend_proj``
+in place of the token embedding; vision (Pixtral) writes the projected
+``batch["patch_embeds"]`` (B, n_patch, frontend_dim) over the embeddings of
+the leading n_patch positions. The parameters are one tree, laid out as the
+reference's parameter pytree: ``embed``, ``final_ln``, optional ``head``
+((d, n_classes) for audio, else (d, vocab)), optional ``frontend_proj``
+(frontend_dim, d), and ``stages[name]["b{j}"]``, each leaf of a block
+stacked over the stage's periods, with the reference's parameter names
+(``ln``, ``attn.wq``, ``ffn.w_gate``, ...). An `LM` holds that tree and
+its layers, each a
 `Block` of views of the stacked leaves, in the reference's order (stage by
 stage, period by period, pattern position by pattern position). It is
 built by `init_params` (random, from a `torch.Generator`) or by
@@ -20,11 +26,13 @@ Entry points:
   * prefill(params, cfg, batch)               -> logits
   * decode_step(params, cfg, token, pos, cache) -> (logits, cache)
 
+A batch is `launch.specs.input_specs`'s layout: {"tokens", "labels"}, with
+"patch_embeds" for vision; {"frame_embeds", "labels", "mask"} for audio.
 `forward` and `loss_fn` take an `LM` or its tree; over a tree, gradients
 reach the tree's leaves.
 
-MoE and MLA layers, frontends, meshes and the configs the registry lists
-in ``NOT_PORTED`` are not ported yet and raise `NotImplementedError`
+MoE and MLA layers, meshes and the configs the registry lists in
+``NOT_PORTED`` are not ported yet and raise `NotImplementedError`
 (ROADMAP.md §1) before anything is allocated: the published Jamba config,
 with its experts, raises; its dense cut (``n_experts=0``) runs.
 """
@@ -60,13 +68,15 @@ class Block:
 class LM:
     """The parameter tree ``tree`` (see the module's docstring) and its
     views: ``embed`` (V, d), ``final_ln`` (d,), ``head`` (d, V) unless tied
-    (else None), and the ``layers``, each a `Block` over period ``period``
-    of its stage's block ``b{j}`` (`torch.unbind` along the period axis)."""
+    (else None), ``frontend_proj`` (frontend_dim, d) with a frontend (else
+    None), and the ``layers``, each a `Block` over period ``period`` of its
+    stage's block ``b{j}`` (`torch.unbind` along the period axis)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         kinds = layer_kinds(cfg)
         self.cfg, self.tree = cfg, tree
         self.embed, self.final_ln, self.head = tree["embed"], tree["final_ln"], tree.get("head")
+        self.frontend_proj = tree.get("frontend_proj")
         pat, layers = cfg.pattern_len, []
         for name, n_periods, _moe in cfg.stages():
             blocks = [_unbind(tree["stages"][name][f"b{j}"], n_periods) for j in range(pat)]
@@ -92,16 +102,12 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` for what the port does not run yet."""
     if cfg.use_mla or cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: MoE/MLA layers are not ported yet: ROADMAP.md §1, item 12")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: ROADMAP.md §1, item 11b")
     arch = canonical(cfg.name)
     if arch in NOT_PORTED:
         raise NotImplementedError(f"{cfg.name} is not ported yet: ROADMAP.md §1, {NOT_PORTED[arch]}")
     for kind in cfg.block_pattern:
         if kind not in ("attn", "attn_local", "mamba", "rwkv"):
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
-    if cfg.ssm_io_bf16:
-        raise NotImplementedError(f"{cfg.name}: ssm_io_bf16 (bf16 scan inputs) is not ported")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -147,7 +153,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     dt = dtype_of(cfg)
     d = cfg.d_model
     tree = {"embed": dense_init(generator, (cfg.vocab, d), scale=0.02, dtype=dt)}
-    head = None if cfg.tie_embeddings else dense_init(generator, (d, cfg.vocab), dtype=dt)
+    out_dim = cfg.n_classes if cfg.arch_type == "audio" else cfg.vocab
+    head = None if cfg.tie_embeddings else dense_init(generator, (d, out_dim), dtype=dt)
+    if cfg.frontend is not None:
+        tree["frontend_proj"] = dense_init(generator, (cfg.frontend_dim, d), dtype=dt)
     stages = {}
     for name, n_periods, _moe in cfg.stages():
         blocks = [None] * cfg.pattern_len
@@ -210,10 +219,21 @@ def _apply_block(blk: Block, cfg, x, positions, use_kernel):
     return _ffn(blk, cfg, x + _post(blk, cfg, inner))
 
 
+def _project(x, w):
+    """einsum("bsf,fd->bsd") in the promoted type of the two, as the
+    reference's einsum promotes (bf16 embeddings into a float32 model)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def _embed(params: LM, cfg, batch):
-    if cfg.frontend is not None or "tokens" not in batch:
-        raise NotImplementedError("frontends are not ported yet: ROADMAP.md §1, item 11b")
-    x = params.embed[batch["tokens"]]
+    if cfg.frontend == "audio":
+        x = _project(batch["frame_embeds"], params.frontend_proj).to(dtype_of(cfg))
+    else:
+        x = params.embed[batch["tokens"]]
+        if cfg.frontend == "vision":
+            pe = _project(batch["patch_embeds"], params.frontend_proj)
+            x = torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
@@ -253,8 +273,9 @@ def _run_layers(params: LM, cfg, x, positions, use_kernel, remat):
 
 
 def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat=True):
-    """Logits (B, S, V) of ``batch["tokens"]`` (B, S), and the auxiliary loss
-    (0 without MoE). ``params``: an `LM` or its tree (``LM.tree``).
+    """Logits (B, S, V) of ``batch`` (the module's layout; V is n_classes
+    for audio), and the auxiliary loss (0 without MoE). ``params``: an `LM`
+    or its tree (``LM.tree``).
     ``use_kernel`` picks the route of the attention, the WKV recurrence and
     the selective scan: "auto" (the CUDA kernels iff on a card), True (the
     kernels; CPU tensors raise) or False (the plain versions). The kernels
@@ -270,14 +291,16 @@ def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat
 
 
 def loss_fn(params, cfg: ModelConfig, batch, mesh=None, use_kernel=False, remat=True):
-    """Mean token cross-entropy of ``batch`` {"tokens", "labels"} (B, S)
-    (labels < 0 ignored), with the reference's defaults: the plain
+    """Mean token cross-entropy of ``batch``'s ``labels`` (B, S) (labels < 0
+    ignored; for audio, so are the positions where ``batch["mask"]`` is
+    False), with the reference's defaults: the plain
     sequence mixers (the kernels have no backward pass) and remat. The
     reference's MoE auxiliary term is unreachable (`check_ported` raises for
     experts); a mesh raises."""
     _no_mesh(mesh)
     logits, _aux = forward(params, cfg, batch, mesh, use_kernel, remat)
-    return cross_entropy(logits, batch["labels"])
+    mask = batch.get("mask") if cfg.arch_type == "audio" else None
+    return cross_entropy(logits, batch["labels"], mask=mask)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +326,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None):
     """token: (B, 1) int; pos: the position of every row. Updates ``cache``
-    in place and returns (logits (B, 1, V), cache)."""
+    in place and returns (logits (B, 1, V), cache). The token embedding is
+    looked up whatever the frontend, as in the reference (an encoder's
+    serving skips decode: `launch.specs.shape_skip_reason`)."""
     _no_mesh(mesh)
     x = params.embed[token]
     for blk, c in zip(params.layers, cache):

@@ -40,11 +40,13 @@ def value_and_grad(loss_fn, params, *args):
     """(loss, grads) of ``loss_fn(params, *args)``, grads a tree like
     ``params``: `jax.value_and_grad` on a tree of tensors. The loss is
     taken of detached aliases of the leaves (same storage, made to require
-    grad), under grad mode whatever the caller's."""
+    grad), under grad mode whatever the caller's. A leaf the loss does not
+    read (HuBERT's token embedding) gets a zero gradient, as in JAX."""
     with torch.enable_grad():
         live = tree_map(lambda x: x.detach().requires_grad_(True), params)
         loss = loss_fn(live, *args)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                         materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(grads), live)
 
 

@@ -78,6 +78,50 @@ def test_flash_attention_variants_match_pallas_interpret(window, cap, causal, sh
     _close(got, jref.naive_attention(jq, jk, jv, causal=causal, window=window, cap=cap), "float32")
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_80_matches_pallas_interpret(causal, dtype):
+    """HuBERT's head dim 80, MHA, S = 150: not a multiple of the Pallas
+    blocks (64) nor of the plain version's chunks (64 here), so the last
+    block is ragged."""
+    (jq, jk, jv), (q, k, v) = _qkv(7, 2, 150, 2, 2, 80, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, use_pallas=True,
+                                interpret=True, bq=64, bk=64)
+    got = ops.flash_attention(q, k, v, causal=causal, q_chunk=64, kv_chunk=64)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, dtype)
+    _close(got, jref.naive_attention(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype, width", [("bfloat16", 128), ("float32", 96)])
+def test_head_dim_80_at_a_greater_width_is_exact(dtype, width):
+    """The CUDA kernel runs hd 80 at width 128 (bf16) or 96 (float32), the
+    columns past 80 zero, at hd 80's scale: in plain
+    PyTorch that padding leaves the scores and the first 80 output columns
+    bit for bit as they are, and the padded columns zero."""
+    assert kernel.instantiated_hd(80, getattr(torch, dtype)) == width
+    _, (q, k, v) = _qkv(8, 1, 150, 2, 2, 80, dtype)
+    pad = lambda x: torch.nn.functional.pad(x.float().transpose(1, 2), (0, width - 80))
+
+    def attend(q, k, v):
+        """Scores summed over the head dim, and P V over the keys, one term
+        after another in a fixed order (as a kernel's loop adds them)."""
+        s = torch.zeros(q.shape[:-1] + (k.shape[-2],))
+        for d in range(q.shape[-1]):
+            s = s + q[..., :, None, d] * k[..., None, :, d]
+        p = torch.softmax(s * kernel.scale_of(80), -1)
+        out = torch.zeros(p.shape[:-1] + (v.shape[-1],))
+        for key in range(v.shape[-2]):
+            out = out + p[..., key, None] * v[..., key, None, :]
+        return s, out
+
+    s, out = attend(*(x.float().transpose(1, 2) for x in (q, k, v)))
+    s_pad, out_pad = attend(pad(q), pad(k), pad(v))
+    assert torch.equal(s, s_pad)
+    assert torch.equal(out_pad[..., :80], out)
+    assert not out_pad[..., 80:].any()
+
+
 def test_chunked_flash_matches_reference_chunked():
     """The chunked plain version against the reference's own chunked path,
     with chunks smaller than S and a window (tests/test_kernels.py:60)."""

@@ -147,6 +147,41 @@ def test_flash_kernel_bf16_ragged_tiles(card, S, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+@pytest.mark.parametrize("S", [77, 200, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_head_dim_80(card, causal, S, dtype):
+    """HuBERT's head dim, at width 128 in the bf16 kernel (TMA zero-fills
+    columns 80-127) and 96 in the float32 kernel, with GQA
+    and S ragged against every block size."""
+    q, k, v = _qkv(card, 27, 2, S, 4, 2, 80, dtype)
+    before = flash_kernel.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = _plain(q, k, v, causal=causal)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_hubert_layer(card, dtype):
+    """HuBERT X-Large's attention: B 4, S 1500 (30 s of 50 Hz frames: the
+    last 128-row block ragged), 16 heads of 80, bidirectional; q, k, v as
+    views of one fused projection, so the columns past 80 of a head are the
+    next head's (the kernel must not read them)."""
+    gen = torch.Generator(device=card).manual_seed(28)
+    fused = torch.randn((4, 1500, 3 * 16, 80), generator=gen, device=card).to(dtype)
+    q, k, v = fused[:, :, :16], fused[:, :, 16:32], fused[:, :, 32:]
+    got = flash_kernel.flash_attention(q, k, v, causal=False)
+    want = _plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
     q, k, v = _qkv(card, 24, 1, 64, 4, 2, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
@@ -429,6 +464,24 @@ def test_scan_kernel_takes_the_models_types(card):
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
     atol, rtol = SCAN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32_x", "bf16_x"])
+def test_scan_kernel_takes_bf16_scan_inputs(card, x_dtype):
+    """``ssm_io_bf16``: dt, B and C in bf16 (a bf16 model's x is bf16; a
+    float32 model's x holds bf16-rounded values in float32), at the model's
+    law over 1024 steps."""
+    x, dt, Bm, Cm, A, D = _scan_inputs(card, 48, 2, 1024, 256, 16, torch.float32, model_law=True)
+    x = x.to(torch.bfloat16).to(x_dtype)
+    dt, Bm, Cm = dt.to(torch.bfloat16), Bm.to(torch.bfloat16), Cm.to(torch.bfloat16)
+    before = scan_kernel.launches
+    got, _ = scan_ops.mamba_scan(x, dt, Bm, Cm, A, D)
+    torch.cuda.synchronize()
+    assert scan_kernel.launches == before + 1 and got.dtype == x_dtype
+    want = scan_ref.mamba_scan(x, dt, Bm, Cm, A, D)[0]
+    atol, rtol = SCAN_TOL[x_dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 

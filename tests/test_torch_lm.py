@@ -1,10 +1,15 @@
 """Parity of the port's LM serving path with the JAX reference, on the CPU.
 
 The reference's smoke variants of Gemma-2 2B (local/global attention,
-window 64, softcaps, post-norms, GeGLU, tied embeddings) and Qwen2.5-3B
-(QKV bias, GQA ratio 2 at smoke width, SwiGLU) are initialised by the
-reference (`repro.models.model.init_params`); the same weights reach the
-port through `repro_torch.bridge.lm_params_from_numpy`. The reference runs
+window 64, softcaps, post-norms, GeGLU, tied embeddings), Qwen2.5-3B
+(QKV bias, GQA ratio 2 at smoke width, SwiGLU), Gemma-2 9B, StarCoder2-3B
+(GELU MLP with biases, QKV bias, rope_theta 1e5), HuBERT X-Large (the
+audio frontend: projected frame embeddings, non-causal attention, 504
+classes) and Pixtral-12B (the vision frontend: projected patch embeddings
+over the leading positions) are initialised by the reference
+(`repro.models.model.init_params`); the same weights reach the port
+through `repro_torch.bridge.lm_params_from_numpy`. A narrow HuBERT
+(d 160, 2 heads) keeps the published head dim 80. The reference runs
 `prefill` on the CPU, which takes its chunked attention, the kernel's own
 oracle; the port's CPU path is the same chunked algorithm.
 
@@ -33,25 +38,51 @@ from repro_torch.models import layers as L, model as M, moe
 from repro_torch.models.config import smoke_variant
 
 torch.set_num_threads(1)
-ARCHS = ("gemma2_2b", "qwen2_5_3b")
+ARCHS = ("gemma2_2b", "qwen2_5_3b", "gemma2_9b", "starcoder2_3b", "hubert_xlarge", "pixtral_12b")
+#: the archs with a decode step (HuBERT is an encoder)
+DECODERS = tuple(a for a in ARCHS if a != "hubert_xlarge")
+#: HuBERT narrowed to d 160 and 2 heads: its published head dim, 80
+HUBERT_HD80 = dict(d_model=160, n_heads=2, n_kv_heads=2, head_dim=80)
 LOGIT_TOL = dict(atol=2e-5, rtol=1e-4)
 
 
-def _configs(arch):
-    return jsmoke(jget_config(arch)), smoke_variant(registry.get_config(arch))
+def _configs(arch, **cut):
+    return (jsmoke(jget_config(arch)).scaled(**cut),
+            smoke_variant(registry.get_config(arch)).scaled(**cut))
 
 
 _MODELS = {}
 
 
-def _models(arch):
-    """(jax cfg, jax params, port cfg, port LM) of one smoke arch, built once."""
-    if arch not in _MODELS:
-        jcfg, cfg = _configs(arch)
+def _models(arch, **cut):
+    """(jax cfg, jax params, port cfg, port LM) of one smoke arch (and
+    `ModelConfig.scaled` arguments ``cut``), built once."""
+    key = (arch, tuple(sorted(cut.items())))
+    if key not in _MODELS:
+        jcfg, cfg = _configs(arch, **cut)
         jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
         tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
-        _MODELS[arch] = (jcfg, jp, cfg, tp)
-    return _MODELS[arch]
+        _MODELS[key] = (jcfg, jp, cfg, tp)
+    return _MODELS[key]
+
+
+def _batch(cfg, seed, B, S, n_patch=None):
+    """A prefill batch of `launch.specs.input_specs`'s layout, drawn with
+    numpy: (the reference's, the port's). Frame and patch embeddings are
+    bf16 on both sides, as the specs make them; vision carries S // 4
+    patches unless ``n_patch`` is given."""
+    rng = np.random.default_rng(seed)
+    bf16 = lambda a: (jnp.asarray(a).astype(jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16))
+    if cfg.frontend == "audio":
+        j, t = bf16(rng.standard_normal((B, S, cfg.frontend_dim)).astype(np.float32))
+        return {"frame_embeds": j}, {"frame_embeds": t}
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.frontend == "vision":
+        n = S // 4 if n_patch is None else n_patch
+        jb["patch_embeds"], tb["patch_embeds"] = bf16(
+            rng.standard_normal((B, n, cfg.frontend_dim)).astype(np.float32))
+    return jb, tb
 
 
 def _np(x):
@@ -91,7 +122,8 @@ def test_apply_rope_matches_reference(dtype):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dense_ffn_matches_reference(arch):
-    """GeGLU (tanh GELU, Gemma-2) and SwiGLU (Qwen2.5) with the same weights."""
+    """GeGLU (tanh GELU, Gemma-2), SwiGLU (Qwen2.5 and Pixtral) and the GELU
+    MLP with biases (StarCoder2, HuBERT) with the same weights."""
     jcfg, jp, cfg, tp = _models(arch)
     x = np.random.default_rng(2).standard_normal((2, 5, cfg.d_model)).astype(np.float32)
     jffn = jax.tree.map(lambda a: a[0], jp["stages"]["main"]["b0"]["ffn"])
@@ -124,14 +156,46 @@ def test_smoke_configs_equal_reference():
 def test_prefill_logits_match_reference(arch):
     """S = 160: more than the smoke window (64) and not a chunk multiple."""
     jcfg, jp, cfg, tp = _models(arch)
-    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 160))
-    want = jax.jit(lambda p, t: JM.prefill(p, jcfg, {"tokens": t}))(jp, jnp.asarray(toks))
-    got = M.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, 160, cfg.vocab) and got.dtype == torch.float32
+    jb, tb = _batch(cfg, 3, 2, 160)
+    want = jax.jit(lambda p, b: JM.prefill(p, jcfg, b))(jp, jb)
+    got = M.prefill(tp, cfg, tb)
+    out = cfg.n_classes if cfg.arch_type == "audio" else cfg.vocab
+    assert got.shape == (2, 160, out) and got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(want), **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def test_hubert_prefill_at_head_dim_80_matches_reference():
+    """The published head dim 80 and bidirectional attention through the
+    plain route, S = 150 (a ragged last chunk)."""
+    jcfg, jp, cfg, tp = _models("hubert_xlarge", **HUBERT_HD80)
+    assert cfg.hd == 80 and not cfg.causal and cfg.frontend == "audio"
+    assert tp.head.shape == (160, cfg.n_classes) and tp.frontend_proj.shape == (cfg.frontend_dim, 160)
+    jb, tb = _batch(cfg, 7, 2, 150)
+    want = jax.jit(lambda p, b: JM.prefill(p, jcfg, b))(jp, jb)
+    got = M.prefill(tp, cfg, tb)
+    np.testing.assert_allclose(_np(got), _np(want), **LOGIT_TOL)
+    # bidirectional: the first position sees the last one's frame
+    tb2 = {"frame_embeds": tb["frame_embeds"].clone()}
+    tb2["frame_embeds"][:, -1] += 1.0
+    assert not torch.allclose(M.prefill(tp, cfg, tb2)[:, 0], got[:, 0])
+
+
+def test_vision_patches_overwrite_the_leading_positions():
+    """Positions past the patches embed their tokens; the patches' own
+    tokens are never read."""
+    _, _, cfg, tp = _models("pixtral_12b")
+    _, tb = _batch(cfg, 8, 1, 32)
+    x, _ = M._embed(tp, cfg, tb)
+    n = tb["patch_embeds"].shape[1]
+    assert n == 8
+    torch.testing.assert_close(x[:, n:], tp.embed[tb["tokens"][:, n:]], rtol=0, atol=0)
+    torch.testing.assert_close(x[:, :n], tb["patch_embeds"].float() @ tp.frontend_proj)
+    other = dict(tb, tokens=tb["tokens"].clone())
+    other["tokens"][:, :n] = 0
+    assert torch.equal(M._embed(tp, cfg, other)[0], x)
+
+
+@pytest.mark.parametrize("arch", DECODERS)
 def test_decode_step_logits_match_reference(arch):
     """80 cached decode steps: the local layers' 64-slot ring wraps."""
     jcfg, jp, cfg, tp = _models(arch)
@@ -146,8 +210,12 @@ def test_decode_step_logits_match_reference(arch):
         want, jcache = step(jp, jnp.asarray(t, jnp.int32), jnp.int32(pos), jcache)
         got, cache = M.decode_step(tp, cfg, torch.from_numpy(t), pos, cache)
         np.testing.assert_allclose(_np(got), _np(want), err_msg=f"pos {pos}", **LOGIT_TOL)
-    # the cache reproduces the prefill's last position
-    full = M.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
+    # the cache reproduces the prefill's last position (no patches: decode
+    # embeds tokens)
+    batch = {"tokens": torch.from_numpy(toks)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.zeros((2, 0, cfg.frontend_dim), dtype=torch.bfloat16)
+    full = M.prefill(tp, cfg, batch)
     np.testing.assert_allclose(_np(got)[:, 0], _np(full)[:, -1], **LOGIT_TOL)
 
 
@@ -222,6 +290,25 @@ def test_init_params_follows_the_reference_law():
     assert float(tp.layers[0].attn["bq"].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("arch", ARCHS[2:])
+def test_init_params_builds_the_reference_tree(arch):
+    """The port's own init of each config this slice ports: the reference's
+    leaves (``frontend_proj`` among them), shapes and types, and the head's
+    width n_classes for audio."""
+    jcfg, cfg = _configs(arch)
+    tp = M.init_params(cfg, torch.Generator().manual_seed(0))
+    want = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), jcfg))
+    got = jax.tree_util.tree_flatten_with_path(bridge.lm_params_to_numpy(tp))[0]
+    want = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
+    assert [x.shape for _, x in got] == [tuple(x.shape) for _, x in want]
+    assert all(x.dtype == torch.float32 for x in jax.tree.leaves(tp.tree))
+    if cfg.frontend is not None:
+        assert tp.frontend_proj.shape == (cfg.frontend_dim, cfg.d_model)
+    if cfg.arch_type == "audio":
+        assert tp.head.shape == (cfg.d_model, cfg.n_classes)
+
+
 @pytest.mark.parametrize("arch", sorted(registry.NOT_PORTED))
 def test_unported_archs_raise_naming_the_roadmap_item(arch):
     """An LM config the port does not run raises from `init_params`, before
@@ -255,7 +342,7 @@ def test_unported_paths_raise():
         M.prefill(tp, cfg, toks, use_kernel=True)
     with pytest.raises(NotImplementedError):
         M.prefill(tp, cfg, toks, mesh=object())
-    for bad in (dict(n_experts=4, top_k=2), dict(use_mla=True), dict(frontend="audio")):
+    for bad in (dict(n_experts=4, top_k=2), dict(use_mla=True)):
         with pytest.raises(NotImplementedError):
             M.init_params(cfg.scaled(**bad), torch.Generator().manual_seed(0))
     # mamba blocks run; the published Jamba's 16 experts do not (raised before

@@ -368,13 +368,39 @@ def test_jamba_config_equals_reference():
     assert M.layer_kinds(cut) == ["mamba"] * 4 + ["attn"] + ["mamba"] * 3
 
 
-def test_bf16_scan_inputs_are_refused():
-    """The reference streams x, dt, B and C through bf16 under ssm_io_bf16
-    (and adds D x on bf16 x); the port does not, so it refuses the option
-    rather than compute something else."""
-    cfg = smoke_variant(registry.get_config(ARCH)).scaled(ssm_io_bf16=True, **DENSE)
-    with pytest.raises(NotImplementedError, match="ssm_io_bf16"):
-        M.init_params(cfg, torch.Generator().manual_seed(0))
+def test_bf16_scan_inputs_match_reference():
+    """``ssm_io_bf16``: the reference streams x, dt, B and C through bf16
+    (the state's math stays float32, and y comes back in the model's type).
+    The smoke Jamba cut with the flag on: prefill logits and three decode
+    steps against the reference. Rounding to bf16 turns the two packages'
+    float32 summation-order gaps into whole bf16 ulps here and there, so the
+    gate is the reference's own spread: 2x the largest gap one-ulp copies of
+    the embedding table make in its prefill (about 2.4e-3; the port lies
+    about 2.6e-3 away). The flag moves the logits 10x that spread."""
+    jcfg, jp, cfg, tp = _model()
+    jcfg, cfg = jcfg.scaled(ssm_io_bf16=True), cfg.scaled(ssm_io_bf16=True)
+    toks = np.random.default_rng(18).integers(0, cfg.vocab, (2, 48))
+    prefill = jax.jit(lambda p, t: JM.prefill(p, jcfg, {"tokens": t}))
+    want = _np(prefill(jp, jnp.asarray(toks)))
+    embed = np.asarray(jp["embed"])
+    spread = 0.0
+    for seed in range(3):
+        up = np.random.default_rng(seed).uniform(size=embed.shape) < 0.5
+        moved = np.where(up, np.nextafter(embed, np.inf), np.nextafter(embed, -np.inf))
+        spread = max(spread, float(np.abs(_np(prefill(dict(jp, embed=jnp.asarray(moved)),
+                                                      jnp.asarray(toks))) - want).max()))
+    got = M.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32
+    assert float(np.abs(_np(got) - want).max()) <= 2 * spread
+    off = M.prefill(tp, cfg.scaled(ssm_io_bf16=False), {"tokens": torch.from_numpy(toks)})
+    assert float((off - got).abs().max()) > 10 * spread
+    jcache, cache = JM.init_cache(jcfg, 2, 8), M.init_cache(cfg, 2, 8, "cpu")
+    step = jax.jit(lambda p, t, pos, c: JM.decode_step(p, jcfg, t, pos, c))
+    for pos in range(3):
+        t = toks[:, pos:pos + 1]
+        want, jcache = step(jp, jnp.asarray(t, jnp.int32), jnp.int32(pos), jcache)
+        got, cache = M.decode_step(tp, cfg, torch.from_numpy(t), pos, cache)
+        assert float(np.abs(_np(got) - _np(want)).max()) <= 2 * spread, f"pos {pos}"
 
 
 def test_bridge_keeps_the_float32_leaves_of_a_bf16_model():

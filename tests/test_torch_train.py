@@ -112,6 +112,62 @@ def test_loss_and_grads_match_reference(arch):
         assert rel <= GRAD_REL_L2, f"{arch} {key}: relative L2 {rel:.3g}"
 
 
+#: the stub frontends' smoke configs: HuBERT narrowed to keep its head dim 80
+#: (audio: frame embeddings, masked labels), Pixtral (vision: patch
+#: embeddings over the leading positions, whose labels are -1)
+FRONTENDS = {"hubert_xlarge": dict(d_model=160, n_heads=2, n_kv_heads=2, head_dim=80),
+             "pixtral_12b": {}}
+
+
+def _frontend_batch(cfg, seed, B=2, S=32):
+    """(the reference's batch, the port's) of `launch.specs.input_specs`'s
+    layout, drawn with numpy; the embeddings bf16 on both sides."""
+    rng = np.random.default_rng(seed)
+    bf16 = lambda a: (jnp.asarray(a).astype(jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16))
+    emb = lambda n: bf16(rng.standard_normal((B, n, cfg.frontend_dim)).astype(np.float32))
+    if cfg.frontend == "audio":
+        labels = rng.integers(0, cfg.n_classes, (B, S)).astype(np.int32)
+        mask = rng.uniform(size=(B, S)) > 0.3
+        (jf, tf) = emb(S)
+        return ({"frame_embeds": jf, "labels": jnp.asarray(labels), "mask": jnp.asarray(mask)},
+                {"frame_embeds": tf, "labels": torch.from_numpy(labels), "mask": torch.from_numpy(mask)})
+    toks = rng.integers(0, cfg.vocab, (B, S + 1))
+    labels = toks[:, 1:].astype(np.int32)
+    labels[:, :S // 4] = -1
+    jp, tp = emb(S // 4)
+    return ({"tokens": jnp.asarray(toks[:, :-1], jnp.int32), "labels": jnp.asarray(labels),
+             "patch_embeds": jp},
+            {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(labels),
+             "patch_embeds": tp})
+
+
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_frontend_loss_and_grads_match_reference(arch):
+    """The audio batch's masked loss and the vision batch's, and their
+    gradients (``frontend_proj``'s among them), against the reference's
+    `jax.value_and_grad(loss_fn)`, at `test_loss_and_grads_match_reference`'s
+    tolerances."""
+    cut = FRONTENDS[arch]
+    jcfg, cfg = jsmoke(jget_config(arch)).scaled(**cut), smoke_variant(registry.get_config(arch)).scaled(**cut)
+    jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    jb, tb = _frontend_batch(cfg, 5)
+    jloss, jgrads = jax.value_and_grad(lambda p: JM.loss_fn(p, jcfg, jb))(jp)
+    loss, grads = value_and_grad(lambda p: M.loss_fn(p, cfg, tb), _tree(jp, cfg))
+    assert float(loss) == pytest.approx(float(jloss), rel=LOSS_RTOL)
+    want = _jax_leaves(jgrads)
+    got = _jax_leaves(bridge.lm_params_to_numpy(grads))
+    assert [k for k, _ in got] == [k for k, _ in want]
+    assert any("frontend_proj" in k for k, _ in got)
+    for (key, g), (_, w) in zip(got, want):
+        assert np.all(np.isfinite(g)), key
+        rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
+        assert rel <= GRAD_REL_L2, f"{arch} {key}: relative L2 {rel:.3g}"
+    if cfg.frontend == "audio":              # the mask is read
+        unmasked = dict(tb, mask=torch.ones_like(tb["mask"]))
+        with torch.no_grad():
+            assert float(M.loss_fn(_tree(jp, cfg), cfg, unmasked)) != pytest.approx(float(loss))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_gives_identical_grads(arch):
     """Recomputing each period in the backward pass changes nothing."""
