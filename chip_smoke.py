@@ -278,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -341,7 +342,7 @@ MAIN_INSTANTIATION = {"rwkv6_scan": "wkv6_fwd_kernelI13__nv_bfloat16ffLi64E",
 #: every kernel of the port, by module name under `repro_torch.kernels`
 KERNELS = ("fedsem_objective", "flash_attention", "rwkv6_scan", "mamba_scan")
 #: one-cycle device sleeps (`torch.cuda._sleep`; the symbol of their kernel)
-#: that `profile_prefill` launches inside the profile before the prefill: the
+#: that every profile (`device_profile`) launches before what it measures: the
 #: profiler drops a profile's leading device records, more of them the longer
 #: the process has run profiles (tools/torch_profile_repeat.py: 54 of a
 #: Gemma-2 2B prefill's first kernels after 13 minutes, layer 0's flash
@@ -458,6 +459,34 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def device_profile(cpu: bool = True):
+    """A `torch.profiler` window (the device's activity, and the host's with
+    ``cpu``) opened by `PROFILE_LEAD_IN` one-cycle device sleeps, which
+    `device_rows` leaves out: the body's leading device records are then
+    kept however long the process has profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_rows(prof) -> list:
+    """The device's own rows (kernels, copies) of a `device_profile`'s
+    `key_averages()`, the lead-in's sleeps left out: a CPU op's row repeats
+    the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and LEAD_IN_SYMBOL not in e.key]
 
 
 def graph_ms(fn, reps: int = 20, iters: int = 20) -> float:
@@ -717,8 +746,6 @@ def phase_profile(device):
     configs' step structure at cut depth) under `torch.profiler`, with the
     device's busy time against the unprofiled wall time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Weights, solve_batch
     from repro_torch.scenarios import get_family
@@ -733,18 +760,16 @@ def phase_profile(device):
         solve_batch(params, w, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             solve_batch(params, w, cfg)
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t0
-        stats = prof.key_averages()
-        # only the device's own events (kernels, copies): a CPU op's row
-        # repeats the device time of the kernels it launched
-        on_dev = [e for e in stats if e.device_type == DeviceType.CUDA]
+        on_dev = device_rows(prof)
         dev_us = lambda e: e.self_device_time_total
         busy_s = sum(dev_us(e) for e in on_dev) / 1e6
-        kernels = sum(e.count for e in stats if "LaunchKernel" in e.key)
+        kernels = sum(e.count for e in prof.key_averages()
+                      if "LaunchKernel" in e.key) - PROFILE_LEAD_IN
         check(busy_s > 0, f"profile[{name}]: the profiler saw no device time")
         check(busy_s <= wall_prof, f"profile[{name}]: device time {busy_s} s > wall {wall_prof} s")
         top = sorted(on_dev, key=dev_us, reverse=True)[:6]
@@ -1129,28 +1154,19 @@ def lm_batch(cfg, B: int, S: int, gen) -> dict:
 
 
 def profile_prefill(M, params, cfg, batch, want):
-    """One warm kernel prefill of ``batch`` under `torch.profiler`, after
-    `PROFILE_LEAD_IN` one-cycle device sleeps under it (left out of every
-    figure): each of its kernels' device time and launches (``want``: the
-    launches each kernel must show), the matrix products' device time, the
-    device's busy time (its own events only, as in `phase_profile`) and the
-    top entries."""
+    """One warm kernel prefill of ``batch`` in a `device_profile`: each of
+    its kernels' device time and launches (``want``: the launches each
+    kernel must show), the matrix products' device time, the device's busy
+    time and the top entries."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_IN):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
+    with device_profile() as prof:
         t0 = time.perf_counter()
         out = M.prefill(params, cfg, batch, use_kernel=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del out
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and LEAD_IN_SYMBOL not in e.key]
+    on_dev = device_rows(prof)
     dev_ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
     products = [e for e in on_dev if any(m in e.key.lower() for m in PRODUCT_MARKS)]
     busy = dev_ms(on_dev)
@@ -1590,8 +1606,6 @@ def profile_sweep(params, w, levels) -> dict:
     (its own events in a `torch.profiler` trace) and the objective kernel's
     share of it, against the unprofiled wall time of a second sweep."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.exhaustive import solve_exhaustive
 
@@ -1600,10 +1614,10 @@ def profile_sweep(params, w, levels) -> dict:
     solve_exhaustive(params, w, **levels, use_kernel=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         solve_exhaustive(params, w, **levels, use_kernel=True)
         torch.cuda.synchronize()
-    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    on_dev = device_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
     kern = [e for e in on_dev if "fedsem_objective_kernel" in e.key]
     kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -1697,12 +1711,9 @@ def serve_once(svc, requests):
 def profile_flush(svc, requests) -> dict:
     """One cold flush (solvers already called once) under `torch.profiler`:
     the device's busy time and the objective kernel's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         done, solve_s = serve_once(svc, requests)
-    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    on_dev = device_rows(prof)
     busy_s = sum(e.self_device_time_total for e in on_dev) / 1e6
     kern = [e for e in on_dev if "fedsem_objective_kernel" in e.key]
     check(busy_s > 0 and sum(e.count for e in kern) > 0,
@@ -1912,8 +1923,6 @@ def profile_round(job, backend_of, seed: int) -> dict:
     backend; and the allocation alone, one flush of the service. The
     round is their sum. Solvers and kernels are called once before."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl import AllocationBackend
 
@@ -1928,12 +1937,12 @@ def profile_round(job, backend_of, seed: int) -> dict:
             return self.alloc
 
     def window(fn):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(cpu=False) as prof:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        on_dev = device_rows(prof)
         busy = sum(e.self_device_time_total for e in on_dev) / 1e6
         kern = sum(e.count for e in on_dev if "fedsem_objective_kernel" in e.key)
         return out, wall, busy, kern
@@ -2087,17 +2096,14 @@ def profile_step(step_fn, state, batch) -> dict:
     """One train step under `torch.profiler` (device activity): its wall
     time and the device's busy time and share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=False) as prof:
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    on_dev = device_rows(prof)
     busy = sum(e.self_device_time_total for e in on_dev) / 1e6
     check(busy > 0, "the profiled train step saw no device time")
     products = sum(e.self_device_time_total for e in on_dev

@@ -303,7 +303,8 @@ class RealClockDriver:
 
     def _maybe_auto_refit(self) -> None:
         """Solver-thread drift check (see `DriverConfig.refit_waste_threshold`):
-        every ``refit_check_every`` admissions, score the observed mix's waste
+        at every multiple of ``refit_check_every`` admissions (once when a
+        burst of admissions crosses one), score the observed mix's waste
         under the service's current ladder and refit when it drifts past the
         threshold. A refit that learns the same ladder back skips the swap so
         a stable-but-wasteful mix triggers at most one solver-cache churn.
@@ -323,7 +324,10 @@ class RealClockDriver:
             # too few samples for a fit yet (refit_min_samples above
             # refit_check_every); retry next loop instead of consuming the check
             return
-        self._next_refit_check = self._admitted + cfg.refit_check_every
+        # the next multiple of refit_check_every: a burst of admissions that
+        # carried this check past one does not push the next past the one after
+        every = cfg.refit_check_every
+        self._next_refit_check = (self._admitted // every + 1) * every
         waste = LadderLearner._waste_or_inf(counts, current)
         if waste > cfg.refit_waste_threshold:
             snap = self.ladder.refit(must_fit=self._cover_must_fit(()))

@@ -11,6 +11,8 @@ rounded to bfloat16 the same way on both sides. The CUDA kernel itself is
 held to the same plain version on the card (`tests/test_torch_kernels_cuda.py`,
 `chip_smoke.py`).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,6 +122,21 @@ def test_head_dim_80_at_a_greater_width_is_exact(dtype, width):
     assert torch.equal(s, s_pad)
     assert torch.equal(out_pad[..., :80], out)
     assert not out_pad[..., 80:].any()
+
+
+@pytest.mark.parametrize("dtype, source", [("bfloat16", "flash_fwd_sm90.cuh"),
+                                           ("float32", "flash_attention.cu")])
+def test_widths_are_the_librarys_dispatch(dtype, source):
+    """`HEAD_DIMS` and `instantiated_hd` say what the library's `dispatch_hd`
+    for that type instantiates: each case's head dim and the width of the
+    `launch` it returns (a change to one table fails here)."""
+    text = (kernel.SOURCE.parent / source).read_text()
+    switch = text[text.index("switch (hd) {"):]
+    switch = switch[:switch.index("default:")]
+    cases = {int(hd): int(width) for hd, width in
+             re.findall(r"case (\d+): return launch<(?:T, )?(\d+)[,>]", switch)}
+    assert tuple(cases) == kernel.HEAD_DIMS
+    assert cases == {hd: kernel.instantiated_hd(hd, getattr(torch, dtype)) for hd in cases}
 
 
 def test_chunked_flash_matches_reference_chunked():

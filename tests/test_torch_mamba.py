@@ -368,6 +368,31 @@ def test_jamba_config_equals_reference():
     assert M.layer_kinds(cut) == ["mamba"] * 4 + ["attn"] + ["mamba"] * 3
 
 
+_BF16 = {}
+
+
+def _bf16_reference():
+    """(jax cfg, port cfg, tokens, the reference's prefill logits, its
+    spread) of the smoke Jamba cut with ``ssm_io_bf16`` on, built once. The
+    spread is the largest gap one-ulp copies of the embedding table make in
+    the reference's own prefill."""
+    if not _BF16:
+        jcfg, jp, cfg, tp = _model()
+        jcfg, cfg = jcfg.scaled(ssm_io_bf16=True), cfg.scaled(ssm_io_bf16=True)
+        toks = np.random.default_rng(18).integers(0, cfg.vocab, (2, 48))
+        prefill = jax.jit(lambda p, t: JM.prefill(p, jcfg, {"tokens": t}))
+        want = _np(prefill(jp, jnp.asarray(toks)))
+        embed = np.asarray(jp["embed"])
+        spread = 0.0
+        for seed in range(3):
+            up = np.random.default_rng(seed).uniform(size=embed.shape) < 0.5
+            moved = np.where(up, np.nextafter(embed, np.inf), np.nextafter(embed, -np.inf))
+            spread = max(spread, float(np.abs(_np(prefill(dict(jp, embed=jnp.asarray(moved)),
+                                                          jnp.asarray(toks))) - want).max()))
+        _BF16.update(v=(jcfg, cfg, toks, want, spread))
+    return _BF16["v"]
+
+
 def test_bf16_scan_inputs_match_reference():
     """``ssm_io_bf16``: the reference streams x, dt, B and C through bf16
     (the state's math stays float32, and y comes back in the model's type).
@@ -376,19 +401,11 @@ def test_bf16_scan_inputs_match_reference():
     float32 summation-order gaps into whole bf16 ulps here and there, so the
     gate is the reference's own spread: 2x the largest gap one-ulp copies of
     the embedding table make in its prefill (about 2.4e-3; the port lies
-    about 2.6e-3 away). The flag moves the logits 10x that spread."""
-    jcfg, jp, cfg, tp = _model()
-    jcfg, cfg = jcfg.scaled(ssm_io_bf16=True), cfg.scaled(ssm_io_bf16=True)
-    toks = np.random.default_rng(18).integers(0, cfg.vocab, (2, 48))
-    prefill = jax.jit(lambda p, t: JM.prefill(p, jcfg, {"tokens": t}))
-    want = _np(prefill(jp, jnp.asarray(toks)))
-    embed = np.asarray(jp["embed"])
-    spread = 0.0
-    for seed in range(3):
-        up = np.random.default_rng(seed).uniform(size=embed.shape) < 0.5
-        moved = np.where(up, np.nextafter(embed, np.inf), np.nextafter(embed, -np.inf))
-        spread = max(spread, float(np.abs(_np(prefill(dict(jp, embed=jnp.asarray(moved)),
-                                                      jnp.asarray(toks))) - want).max()))
+    about 2.6e-3 away). The flag moves the logits 10x that spread, and
+    rounding only some of the inputs misses the gate
+    (`test_bf16_scan_inputs_partly_rounded_miss_the_gate`)."""
+    _, jp, _, tp = _model()
+    jcfg, cfg, toks, want, spread = _bf16_reference()
     got = M.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
     assert got.dtype == torch.float32
     assert float(np.abs(_np(got) - want).max()) <= 2 * spread
@@ -401,6 +418,26 @@ def test_bf16_scan_inputs_match_reference():
         want, jcache = step(jp, jnp.asarray(t, jnp.int32), jnp.int32(pos), jcache)
         got, cache = M.decode_step(tp, cfg, torch.from_numpy(t), pos, cache)
         assert float(np.abs(_np(got) - _np(want)).max()) <= 2 * spread, f"pos {pos}"
+
+
+@pytest.mark.parametrize("rounded", ["x", "dt", "B", "C", "all but D x"])
+def test_bf16_scan_inputs_partly_rounded_miss_the_gate(rounded, monkeypatch):
+    """What `test_bf16_scan_inputs_match_reference`'s gate rules out: a
+    prefill that rounds only one of x, dt, B and C to bf16, or all four but
+    adds D x on the unrounded x, lies beyond 2x the reference's spread."""
+    _, _, _, tp = _model()
+    _, cfg, toks, want, spread = _bf16_reference()
+    scan = Ma.scan_ops.mamba_scan
+
+    def partly(x, dt, Bm, Cm, A, D, h0=None, **kw):
+        r = lambda t, name: t.to(torch.bfloat16) if rounded in (name, "all but D x") else t
+        xs, dt, Bm, Cm = r(x, "x").to(x.dtype), r(dt, "dt"), r(Bm, "B"), r(Cm, "C")
+        y, h = scan(xs, dt, Bm, Cm, A, D, h0, **kw)
+        return (y + D * (x - xs) if rounded == "all but D x" else y), h
+
+    monkeypatch.setattr(Ma.scan_ops, "mamba_scan", partly)
+    got = M.prefill(tp, cfg.scaled(ssm_io_bf16=False), {"tokens": torch.from_numpy(toks)})
+    assert float(np.abs(_np(got) - want).max()) > 2 * spread
 
 
 def test_bridge_keeps_the_float32_leaves_of_a_bf16_model():

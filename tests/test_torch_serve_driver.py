@@ -303,6 +303,33 @@ def test_driver_auto_refit_on_drift_keeps_every_answer():
     assert same_hardened_assignments(done, _replay(service, requests))
 
 
+def test_drift_checks_keep_their_cadence_through_a_burst():
+    """Drift checks fall at multiples of ``refit_check_every`` admissions: a
+    check that a burst carried to admission 5 leaves the next at 8, where
+    the drifted shape (3, 8) trips the refit. (Counting the next check from
+    the burst's end put it at 9, past this stream's end, and the refit
+    never came: `test_driver_auto_refit_on_drift_keeps_every_answer` failed
+    when admissions bunched up under load.)"""
+    service = AllocService(CFG, device="cpu")
+    driver = RealClockDriver(
+        service,
+        cfg=DriverConfig(refit_waste_threshold=0.01, refit_check_every=4, refit_min_samples=4),
+        ladder=LadderLearner(min_samples=1),
+    )
+    for shape in [(4, 8)] * 5:
+        driver.ladder.observe(*shape)
+    driver._admitted = 5
+    driver._maybe_auto_refit()                   # the undrifted mix: no refit
+    assert driver.auto_refits == 0 and driver._next_refit_check == 8
+    for shape in [(3, 8), (4, 8), (4, 8)]:
+        driver.ladder.observe(*shape)
+    driver._admitted = 8
+    driver._maybe_auto_refit()
+    assert driver.auto_refits == 1 and service.cfg.buckets != DEFAULT_BUCKETS
+    assert padded_area_waste([(3, 8), (4, 8)], service.cfg.buckets) == 0.0
+    driver.close()
+
+
 class _LaggingLadder(LadderLearner):
     """A learner whose ``observe`` waits until the driver has admitted the
     shape it records and then lags 50 ms (a preempted observer), and which

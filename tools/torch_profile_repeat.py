@@ -1,31 +1,20 @@
 #!/usr/bin/env python3
-"""Repeat chip_smoke.py's profiled prefill and count its kernel launches.
+"""Repeat chip_smoke.py's profiled prefill and hold each trace's kernel
+launches to the count the model's layers give.
 
-    python3 tools/torch_profile_repeat.py [--arch A] [--repeats 30] [--modes W:P:L ...]
-                                          [--minutes M] [--gap S] [--out FILE]
+    python3 tools/torch_profile_repeat.py [--arch A] [--lead-ins 0 3000]
+                                          [--repeats 1] [--minutes M] [--gap S]
 
 Builds the kernel the arch's layers run from this checkout, makes ``--arch``
-(RWKV-6 1.6B by default) at full width in bfloat16 from seed 0 with chip_smoke.py's batch
-(B 1, S 4096; S 8192 for Gemma-2), and profiles a warm kernel prefill
-``--repeats`` times in each of ``--modes``, then, with ``--minutes``, in
-each mode in turn until that much time has passed since the process
-started, ``--gap`` seconds between profiles (the profiler's misses came late
-in long runs). A mode W:P:L profiles after W unmeasured prefills under the
-profiler's schedule (0: no schedule, as chip_smoke.py profiles), with a
-device sleep of P ms before and after the prefill inside the profile, and L
-launches of a one-cycle device sleep before it; the sleeps are left out of
-every count. 0:0:3000 is chip_smoke.py's profile (`PROFILE_LEAD_IN`);
-the default, 0:0:0, is the profile as it was before that lead-in.
-
-Each profile's launches of the kernel the arch's layers run are counted two
-ways, from `key_averages()` (the count chip_smoke.py gates on) and from the
-raw device events, and held to the kernel's own counter. Beside them: the
-first device event's start after the trace's start, and the least and the
-median time from a launch on the host to its kernel's start on the device
-(paired by correlation id). On a miss, the trace's device events in
-the order they ran (name, start, duration) are written to the JSON report.
-Prints one line per profile and a summary; exits 1 if any profile missed a
-launch. Needs one CUDA card.
+(Gemma-2 2B by default) at full width in bfloat16 from seed 0 with
+chip_smoke.py's batch (B 1, S 8192 for Gemma-2, 4096 otherwise), and calls
+`chip_smoke.profile_prefill` with `PROFILE_LEAD_IN` set to each of
+``--lead-ins`` in turn (3000 is chip_smoke.py's; 0 profiles without a
+lead-in): ``--repeats`` rounds, then more until ``--minutes`` have passed
+since the start, ``--gap`` seconds between profiles (the profiler's misses
+come late in a long process). A profile misses when `profile_prefill`'s
+gate (the trace's launches == the layers' count) fails. Prints one line per
+profile and a summary; exits 1 if any profile missed. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -37,24 +26,19 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-#: the SM clock a sleep's cycle count assumes (the H100 SXM's 1.98 GHz)
-SM_CLOCK_HZ = 1.98e9
 
 
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="rwkv6_1_6b")
-    ap.add_argument("--repeats", type=int, default=30)
-    ap.add_argument("--modes", nargs="+", default=["0:0:0"])
+    ap.add_argument("--arch", default="gemma2_2b")
+    ap.add_argument("--lead-ins", type=int, nargs="+", default=[0, 3000])
+    ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--minutes", type=float, default=0.0)
     ap.add_argument("--gap", type=float, default=0.0)
-    ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     if not torch.cuda.is_available():
         print("torch_profile_repeat: no CUDA card", file=sys.stderr)
@@ -69,87 +53,33 @@ def main() -> int:
     cfg = get_config(args.arch)
     kinds = M.layer_kinds(cfg)
     name = cs.KERNEL_OF_KIND[kinds[0]]
-    kernel = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
-    kernel.build()
+    importlib.import_module(f"repro_torch.kernels.{name}.kernel").build()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0))
     S = 8192 if cfg.name.startswith("gemma") else 4096
     batch = cs.lm_batch(cfg, 1, S, torch.Generator(device=device).manual_seed(1))
-    want = sum(cs.KERNEL_OF_KIND[kind] == name for kind in kinds)
+    want = {k: sum(cs.KERNEL_OF_KIND[kind] == k for kind in kinds) for k in cs.KERNEL_SYMBOLS}
     for _ in range(2):                                   # the cold and the warm call
         M.prefill(params, cfg, batch, use_kernel=True)
-    torch.cuda.synchronize()
-    symbol = cs.KERNEL_SYMBOLS[name]
 
-    def launch_to_start_us(prof):
-        """(least, median) device start minus host launch, over the kernels
-        whose launch the trace holds, by correlation id; None without any."""
-        events = prof.profiler.kineto_results.events()
-        host = {e.correlation_id(): e.start_ns() for e in events
-                if e.device_type() == DeviceType.CPU and "LaunchKernel" in e.name()}
-        lat = sorted(e.start_ns() - host[e.correlation_id()] for e in events
-                     if e.device_type() == DeviceType.CUDA and e.correlation_id() in host)
-        return (lat[0] / 1e3, lat[len(lat) // 2] / 1e3) if lat else None
-
-    def pad(ms):
-        if ms:
-            torch.cuda._sleep(int(ms * 1e-3 * SM_CLOCK_HZ))
-
-    modes = [tuple(float(x) for x in m.split(":")) for m in args.modes]
-    plan = [m for m in modes for _ in range(args.repeats)]
-    runs, misses = [], []
-    rep = 0
-    while rep < len(plan) or time.perf_counter() - t_start < 60 * args.minutes:
-        mode = plan[rep] if rep < len(plan) else modes[(rep - len(plan)) % len(modes)]
-        warmup, pad_ms, lead_in = int(mode[0]), mode[1], int(mode[2])
-        if args.gap and rep:
+    runs = []
+    while (len(runs) < args.repeats * len(args.lead_ins)
+           or time.perf_counter() - t_start < 60 * args.minutes):
+        if args.gap and runs:
             time.sleep(args.gap)
-        steps = schedule(wait=0, warmup=warmup, active=1) if warmup else None
-        kw = dict(schedule=steps) if warmup else {}
-        kernel.launches = 0
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
-            for step in range(warmup + 1):
-                pad(pad_ms)
-                for _ in range(lead_in):
-                    torch.cuda._sleep(1)
-                out = M.prefill(params, cfg, batch, use_kernel=True)
-                pad(pad_ms)
-                torch.cuda.synchronize()
-                del out
-                if step < warmup:              # into the active step, which the exit ends
-                    prof.step()
-        wall = time.perf_counter() - t0
-        counter = kernel.launches // (warmup + 1)
-        averaged = sum(e.count for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and symbol in e.key)
-        dev = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA and cs.LEAD_IN_SYMBOL not in e.name),
-                     key=lambda e: e.time_range.start)
-        raw = sum(symbol in e.name for e in dev)
-        run = dict(mode=args.modes[modes.index(mode)], repeat=rep,
-                   at_s=time.perf_counter() - t_start, counter=counter, key_averages=averaged, raw_events=raw, device_events=len(dev), wall_s=wall,
-                   first_device_us=dev[0].time_range.start if dev else None,
-                   first_and_last=[dev[0].name[:40], dev[-1].name[:40]] if dev else None,
-                   launch_to_start_us=launch_to_start_us(prof))
+        cs.PROFILE_LEAD_IN = args.lead_ins[len(runs) % len(args.lead_ins)]
+        run = dict(lead_in=cs.PROFILE_LEAD_IN, at_s=time.perf_counter() - t_start, miss=None)
+        try:
+            prof = cs.profile_prefill(M, params, cfg, batch, want)
+            run["launches"] = prof["kernel_launches"][name]
+        except cs.SmokeFailure as e:
+            run["miss"] = str(e)
         runs.append(run)
         print(json.dumps(run), flush=True)
-        if averaged != want or raw != want or counter != want:
-            # the trace in the order it ran: which layer's launch is missing,
-            # and what stands in its place
-            run["trace"] = [(e.name[:80], e.time_range.start, e.time_range.elapsed_us())
-                            for e in dev]
-            misses.append(run)
-        rep += 1
-    summary = {m: dict(profiles=sum(r["mode"] == m for r in runs),
-                       misses=sum(r["mode"] == m for r in misses),
-                       device_events=[r["device_events"] for r in runs if r["mode"] == m])
-               for m in args.modes}
-    print(json.dumps({"arch": args.arch, "want": want, "summary": summary}), flush=True)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(dict(arch=args.arch, want=want, summary=summary,
-                                            runs=runs), indent=1))
-    return 1 if misses else 0
+    summary = {lead_in: dict(profiles=sum(r["lead_in"] == lead_in for r in runs),
+                             misses=sum(r["lead_in"] == lead_in and bool(r["miss"]) for r in runs))
+               for lead_in in args.lead_ins}
+    print(json.dumps({"arch": args.arch, "want": want[name], "summary": summary}), flush=True)
+    return 1 if any(r["miss"] for r in runs) else 0
 
 
 if __name__ == "__main__":
