@@ -29,8 +29,10 @@ the CPU in place of the card):
    leaf must be finite, each hardened X binary with every subcarrier owned
    once and every device owning one, every scenario feasible, the kernel
    launched at least ``outer_iters + 1`` times per solve, and
-   ``use_kernel_objective=False`` must give the identical X, P and rho. A
-   small input solved on the card and on the CPU must give the same X.
+   ``use_kernel_objective=False`` must give the identical X, P and rho
+   (PGD's twin at default depth; SCA's at cut depth against a kernel solve
+   at that depth, `SCA_TWIN_REDUCED`). A small input solved on the card
+   and on the CPU must give the same X.
 
 4. build check of the flash-attention kernel of
    `repro_torch.kernels.flash_attention` against its plain version (the
@@ -40,6 +42,7 @@ the CPU in place of the card):
    Gemma-2 2B layer shapes (B = 1, S = 8192, H 8, KV 4, hd 256, bf16; global
    and window 4096, softcap 50), the Qwen2.5-3B shape (H 16, KV 2, hd 128)
    and the Jamba-1.5-Large attention layer (S = 4096, H 64, KV 8, hd 128,
+   bf16), phase 20's Arctic-480B layer (S = 4096, H 56, KV 8, hd 128,
    bf16), and phase 19's layers: HuBERT X-Large's (B 4, S 1500, H 16, KV
    16, hd 80, bidirectional; bf16 and float32: hd 80 runs at width 128 in
    bf16 and 96 in float32, and that design's own floor, 128/80 of the
@@ -222,10 +225,11 @@ the CPU in place of the card):
    step's wall, the median warm step, tokens/s, ``mfu_bf16_dense`` (6 x
    parameters x tokens / step time / 989 TFLOP/s), the peak memory, and the
    last step's device busy share (`torch.profiler`). (b) the smoke variants
-   of `gemma2_2b`, `rwkv6_1_6b` and the Jamba dense cut on bigram-chain
-   batches: gradients with remat on and off equal bit for bit (deterministic
-   algorithms on for the comparison), then 3 steps with finite, falling
-   losses;
+   of `gemma2_2b`, `rwkv6_1_6b`, the Jamba dense cut, `arctic_480b` and
+   `deepseek_v3_671b` on bigram-chain batches: gradients with remat on and
+   off equal bit for bit (deterministic algorithms on for the comparison),
+   then 3 steps with finite, falling losses; for the two MoE models the
+   loss is the cross-entropy plus 0.01 x the positive aux term / n_layers;
 18. federated LM fine-tuning (`repro_torch.launch.federated_lm`): (a) its
    own computation, the smoke `qwen2_5_3b`, 4 clients, 8 rounds,
    `PlannedBackend` at the reference's smoke allocator depth
@@ -256,16 +260,40 @@ the CPU in place of the card):
    run at full depth for StarCoder2 and HuBERT (HuBERT's one-ulp
    perturbation moves its frame projection: it reads no embedding) and on
    a 4-layer cut of the same widths for Gemma-2 9B and Pixtral
-   (`MODEL_REDUCED` lists each cut).
+   (`MODEL_REDUCED` lists each cut);
+20. the MoE and MLA models at their published widths, cut in depth only
+   (`MOE_PATHS`, `MOE_REDUCED`), in bfloat16 from a seeded
+   `torch.Generator`, B 1, S 4096, as phases 5-6: `arctic_480b` cut to 2
+   layers (d 7168, GQA 56/8 at hd 128, 128 experts top-2 of 4864 beside a
+   dense residual of 4864; 27.7 B parameters; 2 flash launches), its
+   yardsticks on 1 layer (the float32 model is 56 GB); `deepseek_v3_671b`
+   cut to 4 layers (MLA: q_lora 1536, kv_lora 512, hd 128 + rope 64; three
+   dense-prefix layers of d_ff 18432, then one MoE layer of 256 experts
+   top-8 of 2048 and a shared expert; 15.1 B parameters; no kernel launch:
+   MLA takes the plain chunked attention, as the reference's does), its
+   yardsticks on the same 4 layers. The float32 layer-by-layer gate holds a
+   MoE layer's kernel route to its plain route on the attention half (the
+   router's top-k is discontinuous: a float32 ulp may move a token to
+   another expert). More gates: the first MoE layer of each model on the
+   FFN norm of the prompt's embeddings run twice in bf16 must be bit for bit
+   equal (the combine sums in a fixed order, no atomics); in float32 on 64
+   of those tokens sampled, it must match a per-token oracle (each token's
+   kept assignments, counted in the reference's dispatch order, times their
+   gates through that expert's SwiGLU, plus the shared expert or dense
+   residual) to 1e-5 of the oracle's scale, with the dropped assignments
+   equal to the oracle's own count; DeepSeek's float32 decode of the first
+   32 positions (the absorbed MLA, the latent cache) must match `forward`'s
+   logits there within 2e-2 (tests/test_distributed_equivalence.py's
+   tolerance).
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
-that kernel's kind (attention: flash; rwkv: WKV6; mamba: the selective scan)
-and every other kernel never; the allocator paths (3, 13, 14, 15, 16 and 18)
+that kernel's kind (attention: flash, but MLA none; rwkv: WKV6; mamba: the
+selective scan) and every other kernel never; the allocator paths (3, 13, 14, 15, 16 and 18)
 launch the objective kernel and no other; the training path (17) launches
 none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17, 18 and each
 model of 19) is
 driven with the kernels' launch counts set to 0 just before it and read
-just after. With ``--profile``, one short solve
+just after (likewise each model of 20). With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -349,7 +377,8 @@ KERNELS = ("fedsem_objective", "flash_attention", "rwkv6_scan", "mamba_scan")
 #: launch among them twice in 81 profiles; none behind 3000 of these sleeps)
 PROFILE_LEAD_IN = 3000
 LEAD_IN_SYMBOL = "spin_kernel"
-#: the kernel a prefill launches once for each layer of a block kind
+#: the kernel a prefill launches once for each layer of a block kind (an
+#: MLA model's attention layers launch none: `path_launches`)
 KERNEL_OF_KIND = {"attn": "flash_attention", "attn_local": "flash_attention",
                   "rwkv": "rwkv6_scan", "mamba": "mamba_scan"}
 #: what marks a matrix product's kernel in a trace (cuBLAS and CUTLASS names)
@@ -358,8 +387,9 @@ PRODUCT_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 #: `ModelConfig.scaled` arguments)
 LM_PATHS = (("gemma2_2b", 8192, {}),                  # phases 5-6 (> the 4096 window)
             ("rwkv6_1_6b", 4096, {}),                 # phases 8-9 (RWKV-6's training context)
-            # phases 11-12: one period, the MoE FFNs dense (ROADMAP item 12
-            # ports the experts; one period with them is 90 GB in bf16)
+            # phases 11-12: one period, the MoE FFNs dense; the port runs the
+            # experts (phase 20's models), but one period with them is 45.1 B
+            # parameters, 90 GB in bf16: the cut is for memory
             ("jamba_1_5_large_398b", 4096, dict(n_layers=8, n_experts=0, top_k=0)))
 #: phase 19: the models at their published widths and depths in bf16, (arch,
 #: B, S, the yardsticks' cut: `ModelConfig.scaled` arguments, or None for
@@ -380,6 +410,29 @@ MODEL_REDUCED = {
     "pixtral_12b": ["batch and sequence: prefill_32k's (32, 32768) -> (1, 8192), 1024 patches",
                     "the yardsticks: n_layers 40 -> 4 (the float32 model is 49 GB)"],
 }
+#: phase 20: the MoE and MLA models at their published widths in bf16, (arch,
+#: B, S, the cut, the yardsticks' cut or None for the same model), and their
+#: cuts of scale
+MOE_PATHS = (("arctic_480b", 1, 4096, dict(n_layers=2), dict(n_layers=1)),
+             ("deepseek_v3_671b", 1, 4096, dict(n_layers=4), None))
+MOE_REDUCED = {
+    "arctic_480b": ["batch and sequence: prefill_32k's (32, 32768) -> (1, 4096), Arctic's "
+                    "published context", "n_layers 35 -> 2: 27.68 B parameters, 55.4 GB in bf16 "
+                    "(476.8 B at full depth)", "the yardsticks (kernel vs plain bf16; float32 "
+                    "layer by layer; float32 kernel vs a one-ulp embedding; the MoE oracle): "
+                    "n_layers 2 -> 1, 14.07 B parameters (56.3 GB in float32)"],
+    "deepseek_v3_671b": ["batch and sequence: prefill_32k's (32, 32768) -> (1, 4096)",
+                         "n_layers 61 -> 4: the 3 dense-prefix layers and 1 MoE layer, 15.11 B "
+                         "parameters, 30.2 GB in bf16 (671.0 B at full depth; 60.4 GB in float32, "
+                         "where the yardsticks, the MoE oracle and the MLA decode gate run)"],
+}
+#: phase 20's gates: the tokens the MoE layer's oracle takes, and its
+#: tolerance (absolute, a share of the oracle's largest |entry|, and
+#: relative: float32 sums over d 7168 and 4864 or 2048 in another order);
+#: the positions the MLA decode is held to `forward` on, and the tolerance
+#: (tests/test_distributed_equivalence.py:104-106)
+MOE_TOKENS, MOE_ORACLE_TOL = 64, 1e-5
+MLA_POSITIONS, MLA_DECODE_TOL = 32, 2e-2
 #: the exit codes for no card and for no port beside the script
 EXIT_NO_CARD, EXIT_NO_PORT = 4, 5
 RTOL, ATOL = 5e-7, 1e-5
@@ -404,6 +457,15 @@ SERVE_RATE_HZ = 20.0
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S = 8, 0.05
 #: the real-clock driver's drain bound (a flush takes about 20 s)
 SERVE_TIMEOUT_S = 900.0
+#: phase 3's one cut: the default SCA config's plain-scoring twin (about 50 s
+#: at default depth) runs at `cut_configs()["sca"]` depth, against a kernel
+#: solve at that depth; the PGD twin and both main-path solves keep their
+#: depth
+SCA_TWIN_REDUCED = ("the SCA plain-scoring twin: AllocatorConfig() -> cut_configs()['sca'] "
+                    "(1 outer iteration, P5 1 x 100, 100 PGD steps), held for identical X, P and "
+                    "rho against a kernel solve at that depth: with it at default depth "
+                    "chip_smoke.py took 1214 s, past its 1200 s limit, on an NVIDIA H100 80GB "
+                    "HBM3 at 700 W")
 #: phase 16: `fedsem_e2e`'s seed, and its cut
 FEDSEM_SEED = 0
 FEDSEM_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference's smoke "
@@ -416,7 +478,8 @@ FEDSEM_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the referenc
 TRAIN_ARCH = "qwen2_5_3b"
 TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_CLIP, TRAIN_STEPS = 8, 128, 1e-3, 1.0, 5
 TRAIN_SMOKE = (("gemma2_2b", {}), ("rwkv6_1_6b", {}),
-               ("jamba_1_5_large_398b", dict(n_experts=0, top_k=0)))
+               ("jamba_1_5_large_398b", dict(n_experts=0, top_k=0)),
+               ("arctic_480b", {}), ("deepseek_v3_671b", {}))
 #: step 0's loss against the same loss through the flash kernel (bf16)
 TRAIN_KERNEL_RTOL = 1e-3
 TRAIN_REDUCED = ("tokens: uniform draws from a seeded torch.Generator, not the bigram chain: "
@@ -700,20 +763,32 @@ def phase_slice(device):
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
     main_path_launches = only_objective_launched("the allocator path")    # ... and ends here
 
-    for name, cfg in configs.items():
+    # the plain-scoring twins: PGD's at default depth, against the solve
+    # above; SCA's at cut depth (`SCA_TWIN_REDUCED`), against a kernel solve
+    # at that depth, whose launches are a comparison's, not the path's
+    twins = {"pgd": (configs["pgd"], None), "sca": (cut_configs()["sca"], SCA_TWIN_REDUCED)}
+    compare_launches = 0
+    for name, (cfg, reduced) in twins.items():
+        if reduced is None:
+            on = solves[name]["res"].alloc
+        else:
+            before = kernel.launches
+            on = solve_batch(params, w, cfg).alloc
+            compare_launches += kernel.launches - before
+            solves[name]["plain_scoring_reduced"] = reduced
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         off = solve_batch(params, w, cfg._replace(use_kernel_objective=False))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        on = solves[name]["res"].alloc
         for leaf in ("X", "P", "rho"):
             check(torch.equal(getattr(off.alloc, leaf), getattr(on, leaf)),
                   f"solve_batch[{name}]: use_kernel_objective=False changes {leaf}")
         solves[name]["plain_scoring_wall_s"] = wall
-        print(f"solve_batch[{name}] use_kernel_objective=False: {wall:.3f} s wall, "
-              "identical X, P, rho", flush=True)
-    check(kernel.launches == main_path_launches, "the plain scoring path launched the kernel")
+        print(f"solve_batch[{name}] use_kernel_objective=False: {wall:.3f} s wall, identical X, P, "
+              "rho" + ("" if reduced is None else f" (reduced: {reduced})"), flush=True)
+    check(kernel.launches == main_path_launches + compare_launches,
+          "the plain scoring path launched the kernel")
 
     # the port on the card against the port on the CPU, on a small input
     small_cfg = AllocatorConfig(inner="pgd", outer_iters=2, pgd=PGDConfig(steps=80))
@@ -825,6 +900,7 @@ FLASH_CASES = [
     ("gemma2_2b local", (1, 8192, 8, 4, 256), "bfloat16", True, 4096, 50.0),
     ("qwen2_5_3b", (1, 8192, 16, 2, 128), "bfloat16", True, None, None),
     ("jamba_1_5_large_398b attn", (1, 4096, 64, 8, 128), "bfloat16", True, None, None),
+    ("arctic_480b attn", (1, 4096, 56, 8, 128), "bfloat16", True, None, None),   # phase 20
     # phase 19's layers: HuBERT's (bidirectional, hd 80 at a padded width,
     # 30 s of 50 Hz frames: the last 128-row block ragged)
     ("hubert_xlarge", (4, 1500, 16, 16, 80), "bfloat16", False, None, None),
@@ -1185,20 +1261,26 @@ def profile_prefill(M, params, cfg, batch, want):
 
 def layer_by_layer(M, params, cfg, batch, rows):
     """The plain prefill run one layer at a time, each layer also through its
-    kernel route on the same input (the model's own layer functions). Returns
-    (plain logits at ``rows`` of every sequence, (B x rows, V), per layer
-    (max |kernel - plain|, the largest ratio of that gap to atol + rtol
-    |plain|))."""
+    kernel route on the same input (the model's own layer functions; a MoE
+    layer's on its attention half, where the kernel acts: its router's top-k
+    is discontinuous, so a float32 ulp there may send a token to another
+    expert). Returns (plain logits at ``rows`` of every sequence, (B x rows,
+    V), per layer (max |kernel - plain|, the largest ratio of that gap to
+    atol + rtol |plain|))."""
     atol, rtol = LM_LAYER_TOL
     x, positions = M._embed(params, cfg, batch)
     gaps = []
     for blk in params.layers:
-        want = M._apply_block(blk, cfg, x, positions, False)
-        got = M._apply_block(blk, cfg, x, positions, True)
+        if blk.is_moe:
+            want = M._mixer(blk, cfg, x, positions, False)
+            got = M._mixer(blk, cfg, x, positions, True)
+        else:
+            want = M._apply_block(blk, cfg, x, positions, False)[0]
+            got = M._apply_block(blk, cfg, x, positions, True)[0]
         err = (got - want).abs()
         gaps.append((float(err.max()), float((err / (atol + rtol * want.abs())).max())))
         del got, err
-        x = want
+        x = M._ffn(blk, cfg, want)[0] if blk.is_moe else want
     logits = M._head(params, cfg, x[:, rows]).float()
     return logits.reshape(-1, logits.shape[-1]), gaps
 
@@ -1215,14 +1297,23 @@ def perturb_one_ulp(t, seed):
         t.copy_(torch.nextafter(t, torch.where(up, inf, -inf)))
 
 
-def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
+def path_launches(M, cfg) -> dict:
+    """Each kernel's launches in one prefill of ``cfg``: one per layer of its
+    block kind (`KERNEL_OF_KIND`); MLA attention launches none."""
+    kinds = [k for k in M.layer_kinds(cfg) if not (cfg.use_mla and k.startswith("attn"))]
+    return {name: sum(KERNEL_OF_KIND[k] == name for k in kinds) for name in KERNELS}
+
+
+def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None):
     """Full-width ``arch`` (cut by ``cut``, `ModelConfig.scaled` arguments)
     prefill of a (B, S) batch (`lm_batch`) through its kernels (one launch
     per layer of each kernel's block kind) and, for a decoder, `ServeLoop`
-    on the same model (phases 5-6, 8-9, 11-12 and 19). The yardsticks run
-    on the same model, or, with ``yard_cut``, on its cut
-    ``cfg.scaled(**yard_cut)`` (phase 19). Returns (report, each kernel's
-    launches on the path)."""
+    on the same model (phases 5-6, 8-9, 11-12, 19 and 20). The yardsticks
+    run on the same model, or, with ``yard_cut``, on its cut
+    ``cfg.scaled(**yard_cut)`` (phases 19 and 20). ``checks(params, cfg,
+    batch) -> dict``, if given, runs on the bf16 model after the path and
+    on the float32 model after its layer-by-layer run (phase 20's gates).
+    Returns (report, each kernel's launches on the path)."""
     import importlib
 
     import torch
@@ -1237,8 +1328,7 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
     check(cfg.dtype == "bfloat16", f"{arch} is not a bf16 config")
     decoder = cfg.arch_type != "audio"
     out_dim = cfg.vocab if decoder else cfg.n_classes
-    kinds = M.layer_kinds(cfg)
-    want = {name: sum(KERNEL_OF_KIND[k] == name for k in kinds) for name in KERNELS}
+    want = path_launches(M, cfg)
     mine = [name for name, n in want.items() if n]        # the path's kernels
     seed = 0
     t0 = time.perf_counter()
@@ -1273,7 +1363,7 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
     check(launches == prefill_launches, f"{arch} ServeLoop launched a kernel: {launches}")
     check(tuple(logits_k.shape) == (B, S, out_dim), f"prefill logits shape {tuple(logits_k.shape)}")
     check(bool(torch.isfinite(logits_k).all()), "prefill logits are not finite")
-    counts = ", ".join(f"{want[name]} {name}" for name in mine)
+    counts = ", ".join(f"{want[name]} {name}" for name in mine) or "none"
     print(f"{arch} prefill(use_kernel=True) B={B} S={S}: {prefill_s:.3f} s wall (first call), "
           f"launches: {counts}; finite logits {tuple(logits_k.shape)}", flush=True)
     if decoder:
@@ -1284,6 +1374,9 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
         ms_step = 1e3 * sum(stats["step_times"]) / stats["steps"]
         print(f"{arch} ServeLoop 8 requests x 16 tokens, 4 slots: {stats['steps']} steps in "
               f"{serve_s:.3f} s, {ms_step:.2f} ms/step", flush=True)
+    checked = {}
+    if checks is not None:
+        checked["bfloat16"] = checks(params, cfg, batch)
 
     # the yardsticks: the plain kernels' versions in bf16, and the same model in float32
     rows = torch.cat([torch.arange(0, S, 64, device=device), torch.tensor([S - 1], device=device)])
@@ -1308,7 +1401,7 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
     shares = "; ".join(
         f"{prof['kernel_launches'][name]} {name} launches {prof['kernel_device_ms'][name]:.3f} ms = "
         f"{100 * prof['kernel_device_ms'][name] / warm_ms:.2f}% of the wall, "
-        f"{100 * prof['kernel_device_ms'][name] / busy:.2f}% of busy" for name in mine)
+        f"{100 * prof['kernel_device_ms'][name] / busy:.2f}% of busy" for name in mine) or "no kernel"
     print(f"{arch} warm prefill, profiled ({prof['wall_profiled_s']:.3f} s wall): device busy "
           f"{busy:.2f} ms = {100 * busy / warm_ms:.2f}% of the unprofiled {warm_ms:.2f} ms; "
           f"{shares}; matrix products {prof['products_device_ms']:.3f} ms = "
@@ -1331,6 +1424,8 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
     sub_f, layer_gaps = layer_by_layer(M, params32, cfg32, batch, rows)
     torch.cuda.synchronize()
     timed["float32_layer_by_layer_s"] = time.perf_counter() - t0
+    if checks is not None:
+        checked["float32"] = checks(params32, cfg32, batch)
     perturb_one_ulp(params32.embed if decoder else params32.frontend_proj, seed + 2)
     sub_fq = run(params32, cfg32, False, "float32_ulp_plain_s")
     del params32
@@ -1369,7 +1464,7 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None):
                                                 for name in mine},
                   gap_kernel_plain=gap_kp, gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
                   gap_float32_kernel_plain=gap_f32, gap_float32_one_ulp=gap_ulp,
-                  layer_gaps=layer_gaps)
+                  layer_gaps=layer_gaps, checks=checked)
     if decoder:
         report.update(serve_steps=stats["steps"], serve_s=serve_s, serve_ms_per_step=ms_step)
     return report, launches
@@ -1392,6 +1487,117 @@ def phase_models(device):
         print(f"{arch}: phase 19 part {rep['wall_s']:.2f} s; reduced: "
               + "; ".join(MODEL_REDUCED[arch]), flush=True)
     print(f"phase 19: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return reports, launches
+
+
+def moe_oracle(p, cfg, x):
+    """The MoE layer ``p`` on tokens x (T, d), token by token: each token's
+    kept assignments (an expert's first ``capacity`` in the reference's
+    dispatch order: token by token, by rank), each its gate times that
+    expert's SwiGLU of the token, summed, plus the shared experts and the
+    dense residual. Returns (out (T, d), the dropped assignments)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    w, ids, _ = moe.router_topk(p["router"], x, cfg.top_k)
+    T, E = x.shape[0], cfg.n_experts
+    capacity = moe.capacity_of(cfg, T, E)
+    load, dropped = [0] * E, 0
+    out = torch.zeros_like(x)
+    for t, (experts, gates) in enumerate(zip(ids.tolist(), w.tolist())):
+        for e, g in zip(experts, gates):
+            load[e] += 1
+            if load[e] > capacity:
+                dropped += 1
+                continue
+            h = F.silu(x[t] @ p["w_gate"][e]) * (x[t] @ p["w_up"][e])
+            out[t] += g * (h @ p["w_down"][e])
+    for extra in ("shared", "dense_res"):
+        if extra in p:
+            out += moe.dense_ffn(p[extra], cfg, x)
+    return out, dropped
+
+
+def moe_mla_checks(params, cfg, batch) -> dict:
+    """Phase 20's gates on one model, at the FFN norm of the prompt's token
+    embeddings at the first MoE layer. bf16: the layer on every prompt token
+    twice, bit for bit. float32: the layer on `MOE_TOKENS` of them sampled
+    against `moe_oracle`, with the dropped assignments equal; with MLA, the
+    decode of the first `MLA_POSITIONS` positions against `forward`'s
+    logits there."""
+    import torch
+
+    from repro_torch.models import model as M, moe
+    from repro_torch.models.layers import rms_norm
+
+    out = {}
+    tokens = batch["tokens"]
+    blk = next(b for b in params.layers if b.is_moe)
+    x = rms_norm(params.embed[tokens[0]], blk.ffn_ln, cfg.norm_eps)
+    if cfg.dtype == "bfloat16":
+        first, second = (moe.moe_ffn_local(blk.ffn, cfg, x)[0] for _ in range(2))
+        check(torch.equal(first, second), f"{cfg.name}: two bf16 runs of the MoE layer differ")
+        out["bf16_runs_equal"] = True
+        print(f"{cfg.name} MoE layer, bf16, {x.shape[0]} tokens: two runs bit for bit equal",
+              flush=True)
+        return out
+    gen = torch.Generator(device=x.device).manual_seed(20)
+    xs = x[torch.randperm(x.shape[0], generator=gen, device=x.device)[:MOE_TOKENS]]
+    t0 = time.perf_counter()
+    got, _ = moe.moe_ffn_local(blk.ffn, cfg, xs)
+    want, dropped = moe_oracle(blk.ffn, cfg, xs)
+    torch.cuda.synchronize()
+    w, ids, _ = moe.router_topk(blk.ffn["router"], xs, cfg.top_k)
+    capacity = moe.capacity_of(cfg, MOE_TOKENS, cfg.n_experts)
+    slots = moe._dispatch_tables(ids, w, cfg.n_experts, capacity)[2]
+    dropped_layer = int((slots == cfg.n_experts * capacity).sum())
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    ratio = float((err / (MOE_ORACLE_TOL * scale + MOE_ORACLE_TOL * want.abs())).max())
+    out.update(moe_tokens=MOE_TOKENS, capacity=capacity, dropped=dropped_layer,
+               dropped_oracle=dropped, oracle_max_abs_err=float(err.max()), oracle_scale=scale,
+               oracle_gate_ratio=ratio, oracle_s=time.perf_counter() - t0)
+    print(f"{cfg.name} MoE layer, float32, {MOE_TOKENS} sampled tokens, capacity {capacity}: "
+          f"{dropped_layer} assignments dropped (the oracle's count {dropped}); vs the per-token "
+          f"oracle max abs err {out['oracle_max_abs_err']:.4g} (|oracle| <= {scale:.4g}), "
+          f"{ratio:.3g} of the tolerance", flush=True)
+    check(dropped_layer == dropped,
+          f"{cfg.name}: the layer dropped {dropped_layer} assignments, the oracle {dropped}")
+    check(ratio <= 1.0, f"{cfg.name}: the MoE layer differs from its per-token oracle by "
+          f"{out['oracle_max_abs_err']} ({ratio} of the tolerance)")
+    if cfg.use_mla:
+        n = MLA_POSITIONS
+        full = M.prefill(params, cfg, batch, use_kernel=False)[:, :n].float().clone()
+        cache = M.init_cache(cfg, tokens.shape[0], n, tokens.device)
+        steps = [M.decode_step(params, cfg, tokens[:, pos:pos + 1], pos, cache)[0]
+                 for pos in range(n)]
+        gap = float((torch.cat(steps, dim=1).float() - full).abs().max())
+        out.update(mla_positions=n, mla_decode_gap=gap, mla_logit_scale=float(full.abs().max()))
+        print(f"{cfg.name} MLA: float32 decode of the first {n} positions vs forward's logits: "
+              f"max abs gap {gap:.4g} (|logit| <= {out['mla_logit_scale']:.4g}; gate "
+              f"{MLA_DECODE_TOL})", flush=True)
+        check(gap <= MLA_DECODE_TOL, f"{cfg.name}: MLA decode differs from forward by {gap}")
+    return out
+
+
+def phase_moe(device):
+    """Phase 20: each of `MOE_PATHS` through `phase_lm` with `moe_mla_checks`.
+    Returns (reports by arch, each kernel's launches by arch)."""
+    import torch
+
+    reports, launches = {}, {}
+    t_phase = time.perf_counter()
+    for arch, B, S, cut, yard_cut in MOE_PATHS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep, n = phase_lm(device, arch, S, cut, B=B, yard_cut=yard_cut, checks=moe_mla_checks)
+        rep.update(wall_s=time.perf_counter() - t0, reduced=MOE_REDUCED[arch])
+        reports[arch], launches[arch] = rep, n
+        print(f"{arch}: phase 20 part {rep['wall_s']:.2f} s; reduced: "
+              + "; ".join(MOE_REDUCED[arch]), flush=True)
+    print(f"phase 20: {time.perf_counter() - t_phase:.2f} s", flush=True)
     return reports, launches
 
 
@@ -2222,6 +2428,17 @@ def phase_train(device):
             torch.use_deterministic_algorithms(False)
         same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])))
         del grads
+        aux = None
+        if scfg.n_experts:                                # the MoE term in the loss
+            with torch.no_grad():
+                logits, aux = M.forward(sstate.params, scfg, batches[0], use_kernel=False)
+                ce = float(cross_entropy(logits, batches[0]["labels"]))
+                total = float(M.loss_fn(sstate.params, scfg, batches[0]))
+            aux = float(aux)
+            want_total = ce + 0.01 * aux / scfg.n_layers
+            check(aux > 0 and abs(total - want_total) <= 1e-6 * abs(want_total),
+                  f"train {arch} smoke: loss {total} is not the cross-entropy {ce} + 0.01 x aux "
+                  f"{aux} / {scfg.n_layers}")
         sstep = T.build_train_step(scfg, lr=TRAIN_LR, clip=TRAIN_CLIP)
         slosses = []
         t1 = time.perf_counter()
@@ -2233,9 +2450,9 @@ def phase_train(device):
         check(same, f"train {arch} smoke: remat on and off give different gradients")
         check(all(map(math.isfinite, slosses)) and slosses[-1] < slosses[0],
               f"train {arch} smoke: losses {slosses} not finite and decreasing")
-        report["smoke"][arch] = dict(cut=cut, losses=slosses, remat_equal=same, wall_s=wall)
+        report["smoke"][arch] = dict(cut=cut, losses=slosses, remat_equal=same, wall_s=wall, aux=aux)
         print(f"train {arch} smoke: losses {fmt(slosses)} over 3 steps ({wall:.2f} s); remat on == "
-              f"off: {same}", flush=True)
+              f"off: {same}" + ("" if aux is None else f"; aux term {aux:.6g} in the loss"), flush=True)
     return report
 
 
@@ -2443,6 +2660,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one short solve per config (device busy share)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     # torch.compile's caches (phase 4's flex_attention) stay inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / "torch_compile" / sub))
@@ -2556,6 +2774,10 @@ def main() -> int:
     # phase 19: Gemma-2 9B, StarCoder2-3B, HuBERT X-Large and Pixtral-12B
     models, model_launches = phase_models(device)
     paths.update(model_launches)
+
+    # phase 20: Arctic-480B and DeepSeek-V3 (MoE and MLA) at their published widths
+    moe_models, moe_launches = phase_moe(device)
+    paths.update(moe_launches)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
                          "exhaustive": oracle_launches, "serving": serving_launches,
                          "fedsem": fedsem_launches, "federated_lm": fedlm_launches}
@@ -2630,8 +2852,10 @@ def main() -> int:
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
                  oracle=oracle, serving=serving, fedsem=fedsem, training=training,
-                 federated_lm=fedlm, models=models, record=record, card=smi),
+                 federated_lm=fedlm, models=models, moe_models=moe_models, record=record,
+                 card=smi, script_s=time.perf_counter() - t_script),
             indent=1, default=str))
+    print(f"chip_smoke: all 20 phases passed in {time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -82,9 +82,9 @@ def lm_tree_from_numpy(tree: dict, cfg, device="cuda", dtype=None) -> dict:
     ``embed``, ``final_ln``, optional ``head`` and ``frontend_proj``, and
     ``stages[name]["b{j}"]`` whose leaves carry a leading period axis. Arrays go through float32
     (exact for bfloat16, which numpy holds as ``ml_dtypes.bfloat16``) and
-    then to ``dtype``; with None, to the config's dtype, except the Mamba
-    leaves the reference keeps in float32 (`models.mamba.FLOAT32_LEAVES`),
-    which stay float32 in a bfloat16 model.
+    then to ``dtype``; with None, to the config's dtype, except the leaves
+    the reference keeps in float32, which stay float32 in a bfloat16 model:
+    the Mamba leaves of `models.mamba.FLOAT32_LEAVES` and the MoE router.
     """
     from .models.layers import dtype_of
     from .models.mamba import leaf_dtype
@@ -97,7 +97,11 @@ def lm_tree_from_numpy(tree: dict, cfg, device="cuda", dtype=None) -> dict:
     def convert(node, name=None, mamba=False):
         if isinstance(node, dict):
             return {k: convert(v, k, mamba or k == "mamba") for k, v in node.items()}
-        to = leaf_dtype(name, dt) if mamba and dtype is None else dt
+        to = dt
+        if dtype is None and mamba:
+            to = leaf_dtype(name, dt)
+        elif dtype is None and name == "router":
+            to = torch.float32
         return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=dev, dtype=to)
 
     keys = ("embed", "final_ln", "head", "frontend_proj", "stages")

@@ -2,12 +2,11 @@
 
 Counterpart of `repro.configs.registry`. `get_config` returns every LM
 configuration of the reference, as plain data (``hetero_classes`` sizes its
-device classes from all ten). Which of them the port can build is decided at
-model construction: `models.model.init_params` raises `NotImplementedError`
-naming the ROADMAP.md §1 item that ports what a config needs (MoE and MLA
-layers, and the configs listed in ``NOT_PORTED``).
-``jamba_1_5_large_398b`` is the published config, with its 16 experts; the
-port runs its dense cut, ``CONFIG.scaled(n_experts=0, top_k=0)``.
+device classes from all ten). The port builds every one of them
+(`models.model.init_params`); a config listed in ``NOT_PORTED`` would raise
+`NotImplementedError` naming the ROADMAP.md §1 item that ports it, and none
+is listed. ``jamba_1_5_large_398b`` is the published config, with its 16
+experts.
 ``fedsem_autoencoder`` is the paper's own codec: its config is a
 `repro_torch.semcom.AEConfig`, not an LM config.
 """
@@ -32,11 +31,8 @@ ARCHS = (
     "fedsem_autoencoder",   # the paper's own model (not an LM config)
 )
 #: configs the port does not run yet, and the ROADMAP.md §1 item that ports
-#: each (consulted by `models.model.init_params`)
-NOT_PORTED = {
-    "arctic_480b": "item 12 (MoE and MLA)",
-    "deepseek_v3_671b": "item 12 (MoE and MLA)",
-}
+#: each (consulted by `models.model.init_params`): none since item 12
+NOT_PORTED: dict[str, str] = {}
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -1,13 +1,15 @@
-"""Attention: GQA with RoPE, sliding window, softcap and QKV bias.
+"""Attention: GQA with RoPE, sliding window, softcap and QKV bias; MLA.
 
-Counterpart of the GQA part of `repro.models.attention`. Prefill uses the
+Counterpart of `repro.models.attention`. Prefill uses the
 chunked flash attention below (a running log-sum-exp over kv chunks, fp32)
 or, with ``use_kernel``, the CUDA kernel of `repro_torch.kernels.flash_attention`;
 the chunked function is that kernel's plain version, as it is the Pallas
 kernel's oracle in the reference. Decode attends one query over a KV cache;
 sliding-window layers keep a ring buffer of ``window`` slots with explicit
-position tags. DeepSeek's MLA is not ported yet (ROADMAP.md §1, item 12):
-a config with it raises in `repro_torch.models.model`.
+position tags. DeepSeek's MLA: low-rank q and kv projections with a
+decoupled RoPE head; its prefill builds per-head K and V from the latent and
+takes the chunked plain attention (as the reference's does), its decode
+caches only the latent (c_kv, k_rope) and scores in the absorbed form.
 """
 from __future__ import annotations
 
@@ -18,23 +20,46 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.kernel import scale_of
 
-from .layers import apply_rope, dense_init, softcap
+from .layers import apply_rope, constant, dense_init, rms_norm, softcap
 
 
-def init_attn_params(generator, cfg, dtype) -> dict:
+def init_attn_params(generator, cfg, dtype, out=None) -> dict:
+    """The GQA parameters; with ``out`` (their slots in a stacked tree, by
+    name) written there (`layers.dense_init`)."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    o = out or {}
+    normal = lambda name, shape: dense_init(generator, shape, dtype=dtype, out=o.get(name))
     p = {
-        "wq": dense_init(generator, (d, H, hd), dtype=dtype),
-        "wk": dense_init(generator, (d, KV, hd), dtype=dtype),
-        "wv": dense_init(generator, (d, KV, hd), dtype=dtype),
-        "wo": dense_init(generator, (H, hd, d), dtype=dtype),
+        "wq": normal("wq", (d, H, hd)),
+        "wk": normal("wk", (d, KV, hd)),
+        "wv": normal("wv", (d, KV, hd)),
+        "wo": normal("wo", (H, hd, d)),
     }
     if cfg.qkv_bias:
-        dev = generator.device
-        p["bq"] = torch.zeros((H, hd), dtype=dtype, device=dev)
-        p["bk"] = torch.zeros((KV, hd), dtype=dtype, device=dev)
-        p["bv"] = torch.zeros((KV, hd), dtype=dtype, device=dev)
+        for name, n in (("bq", H), ("bk", KV), ("bv", KV)):
+            p[name] = constant((n, hd), 0.0, dtype, generator.device, o.get(name))
     return p
+
+
+def init_mla_params(generator, cfg, dtype, out=None) -> dict:
+    """DeepSeek's MLA parameters: the q and kv down-projections with their
+    norms, the per-head up-projections (q: hd + rope columns; k and v: hd
+    from the kv latent) and the output projection."""
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    qlr, kvlr, rd = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim
+    o = out or {}
+    normal = lambda name, shape: dense_init(generator, shape, dtype=dtype, out=o.get(name))
+    zeros = lambda name, n: constant((n,), 0.0, dtype, generator.device, o.get(name))
+    return {
+        "w_dq": normal("w_dq", (d, qlr)),
+        "q_norm": zeros("q_norm", qlr),
+        "w_uq": normal("w_uq", (qlr, H, hd + rd)),
+        "w_dkv": normal("w_dkv", (d, kvlr + rd)),
+        "kv_norm": zeros("kv_norm", kvlr),
+        "w_uk": normal("w_uk", (kvlr, H, hd)),
+        "w_uv": normal("w_uv", (kvlr, H, hd)),
+        "wo": normal("wo", (H, hd, d)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -191,4 +216,81 @@ def gqa_decode(p, cfg, x, pos: int, cache, *, window=None):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", w, vc.float())
     out = out.reshape(B, 1, H, hd).to(x.dtype)
+    return _out(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, cfg, x, positions):
+    """(q_nope (B,S,H,hd), q_rope (B,S,H,rope)) from the normed q latent."""
+    ql = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = _proj(ql, p["w_uq"])
+    q_nope, q_rope = q[..., : cfg.hd], q[..., cfg.hd:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, cfg, x, positions):
+    """(c_kv (B,S,kv_lora) normed, k_rope (B,S,rope)): what the cache keeps;
+    k_rope is one rotated head shared by every query head."""
+    dkv = x @ p["w_dkv"]
+    c_kv = rms_norm(dkv[..., : cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., cfg.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0]
+
+
+def mla_forward(p, cfg, x, positions):
+    """Prefill at positions 0..S-1: per-head K and V built from the latent,
+    q and k of width hd + rope, v zero-padded to that width for the chunked
+    attention (at the config's chunks) and sliced back to hd. It takes the
+    plain chunked attention, as the reference's does: no kernel."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = _proj(c_kv, p["w_uk"])
+    v = _proj(c_kv, p["w_uv"])
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], cfg.n_heads, cfg.qk_rope_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    v_pad = F.pad(v, (0, cfg.qk_rope_dim))
+    out = flash_attention(
+        q, k, v_pad, q_positions=positions, kv_positions=positions, causal=True,
+        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+    )[..., : cfg.hd]
+    return _out(out, p["wo"])
+
+
+def init_mla_cache(cfg, batch, length, dtype, device):
+    """The latent cache: c_kv (B, length, kv_lora), k_rope (B, length, rope)
+    and the positions written (-1: none)."""
+    return {
+        "c_kv": torch.zeros((batch, length, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, length, cfg.qk_rope_dim), dtype=dtype, device=device),
+        "pos_tag": torch.full((length,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(p, cfg, x, pos: int, cache):
+    """One-token decode in the absorbed form: scores and the value sum in
+    the latent space, in float32 (no per-head K or V), scaled by
+    1/sqrt(hd + rope). Writes slot pos of the cache in place (the last slot
+    past its end, as the reference's clamped update does) and returns
+    (out, cache)."""
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)           # (B,1,H,hd), (B,1,H,rope)
+    c_kv_t, k_rope_t = _mla_latent(p, cfg, x, positions)
+    slot = min(pos, cache["c_kv"].shape[1] - 1)
+    cache["c_kv"][:, slot] = c_kv_t[:, 0]
+    cache["k_rope"][:, slot] = k_rope_t[:, 0]
+    cache["pos_tag"][slot] = pos
+    c_kv, k_rope, tags = cache["c_kv"].float(), cache["k_rope"].float(), cache["pos_tag"]
+    q_eff = torch.einsum("bshk,rhk->bshr", q_nope.float(), p["w_uk"].float())   # (B,1,H,r)
+    s = torch.einsum("bshr,btr->bhst", q_eff, c_kv)
+    s = s + torch.einsum("bshk,btk->bhst", q_rope.float(), k_rope)
+    s = s / float(np.sqrt(np.float32(cfg.hd + cfg.qk_rope_dim)))
+    mask = (tags >= 0) & (tags <= pos)
+    s = torch.where(mask[None, None, None, :], s, -torch.inf)
+    w = torch.softmax(s, dim=-1)
+    lat = torch.einsum("bhst,btr->bshr", w, c_kv)                              # (B,1,H,r)
+    out = torch.einsum("bshr,rhk->bshk", lat, p["w_uv"].float()).to(x.dtype)
     return _out(out, p["wo"]), cache

@@ -6,6 +6,8 @@ float32 parity with the reference holds to round-off.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -14,15 +16,54 @@ def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def dense_init(generator: torch.Generator, shape, scale=None, dtype=torch.float32):
-    """Standard normal * scale (default 1/sqrt(fan_in), fan_in = shape[0]),
+#: the most entries `dense_init` draws at once into a destination: a larger
+#: leaf (an expert stack) is drawn a run of first-axis slices at a time, so
+#: its float32 temporaries stay near 1 GiB
+DRAW_CHUNK = 2**28
+
+
+class ShapesOnly:
+    """Stands in for a `torch.Generator` in init's shape pass: every init
+    function then makes its leaves on the meta device, and nothing is drawn
+    (`models.model.init_params` sizes the stacked tree from it)."""
+
+    device = torch.device("meta")
+
+
+def dense_init(generator, shape, scale=None, dtype=torch.float32, out=None):
+    """Standard normal * scale (default 1/sqrt(fan_in), fan_in = shape[0],
+    which for a 3-D expert stack is the expert count, as in the reference),
     drawn in float32 on the generator's device, then cast: the reference's
-    law, not its draws."""
+    law, not its draws. With ``out`` (the leaf's slot in a stacked tree, of
+    ``shape`` and ``dtype``) the draw is written into it and ``out`` is
+    returned; a leaf of more than `DRAW_CHUNK` entries is drawn a run of
+    first-axis slices at a time."""
+    shape = tuple(shape)
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / float(fan_in) ** 0.5
-    x = torch.randn(tuple(shape), generator=generator, device=generator.device,
-                    dtype=torch.float32)
-    return (x * scale).to(dtype)
+    dev = generator.device
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    draw = lambda s: torch.randn(s, generator=generator, device=dev, dtype=torch.float32) * scale
+    if out is None:
+        return draw(shape).to(dtype)
+    if tuple(out.shape) != shape or out.dtype != dtype:
+        raise ValueError(f"dense_init: out is {tuple(out.shape)} {out.dtype}, want {shape} {dtype}")
+    step = max(1, DRAW_CHUNK // max(1, math.prod(shape[1:])))
+    if step >= shape[0]:
+        return out.copy_(draw(shape))
+    for lo in range(0, shape[0], step):
+        part = out[lo:lo + step]
+        part.copy_(draw(part.shape))
+    return out
+
+
+def constant(shape, value, dtype, device, out=None):
+    """A leaf of ``value`` everywhere, or ``out`` (its slot in a stacked
+    tree) filled with it."""
+    if out is None:
+        return torch.full(tuple(shape), value, dtype=dtype, device=device)
+    return out.fill_(value)
 
 
 def rms_norm(x, gamma, eps=1e-6):

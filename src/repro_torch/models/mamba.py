@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 
-from .layers import dense_init
+from .layers import constant, dense_init
 
 #: leaves kept in float32 whatever the model's type, as the reference's
 #: `init_mamba_params` makes them
@@ -44,25 +44,29 @@ def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if name in FLOAT32_LEAVES else dtype
 
 
-def init_mamba_params(generator, cfg, dtype) -> dict:
+def init_mamba_params(generator, cfg, dtype, out=None) -> dict:
+    """The Mamba block's parameters; with ``out`` (their slots in a stacked
+    tree, by name) written there (`layers.dense_init`)."""
     d = cfg.d_model
     di = cfg.ssm_expand * d
     N = cfg.ssm_state
     R = _dt_rank(cfg)
     dev = generator.device
     f32 = torch.float32
+    o = out or {}
+    normal = lambda name, shape: dense_init(generator, shape, dtype=dtype, out=o.get(name))
     A = torch.arange(1, N + 1, dtype=f32, device=dev)[None, :].repeat(di, 1)
     return {
-        "in_proj": dense_init(generator, (d, 2 * di), dtype=dtype),
-        "conv_w": dense_init(generator, (cfg.ssm_conv, di), dtype=dtype),
-        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
-        "x_proj": dense_init(generator, (di, R + 2 * N), dtype=dtype),
-        "dt_proj": dense_init(generator, (R, di), dtype=dtype),
-        "dt_bias": torch.full((di,), float(torch.log(torch.expm1(torch.tensor(0.01)))),
-                              dtype=f32, device=dev),
-        "A_log": torch.log(A),                   # (di, N) float32
-        "D": torch.ones((di,), dtype=f32, device=dev),
-        "out_proj": dense_init(generator, (di, d), dtype=dtype),
+        "in_proj": normal("in_proj", (d, 2 * di)),
+        "conv_w": normal("conv_w", (cfg.ssm_conv, di)),
+        "conv_b": constant((di,), 0.0, dtype, dev, o.get("conv_b")),
+        "x_proj": normal("x_proj", (di, R + 2 * N)),
+        "dt_proj": normal("dt_proj", (R, di)),
+        "dt_bias": constant((di,), float(torch.log(torch.expm1(torch.tensor(0.01)))), f32, dev,
+                            o.get("dt_bias")),
+        "A_log": torch.log(A) if "A_log" not in o else o["A_log"].copy_(torch.log(A)),  # (di, N) float32
+        "D": constant((di,), 1.0, f32, dev, o.get("D")),
+        "out_proj": normal("out_proj", (di, d)),
     }
 
 

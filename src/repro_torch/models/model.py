@@ -1,8 +1,8 @@
 """Model assembly: embed -> layers -> final norm -> head; prefill and decode.
 
 Counterpart of `repro.models.model` for ``attn``/``attn_local`` and
-``mamba`` blocks with a dense FFN and for ``rwkv`` blocks (time mix and
-channel mix), with the reference's stub frontends: audio (HuBERT) projects
+``mamba`` blocks with a dense or MoE FFN and for ``rwkv`` blocks (time mix
+and channel mix), with the reference's stub frontends: audio (HuBERT) projects
 ``batch["frame_embeds"]`` (B, S, frontend_dim) through ``frontend_proj``
 in place of the token embedding; vision (Pixtral) writes the projected
 ``batch["patch_embeds"]`` (B, n_patch, frontend_dim) over the embeddings of
@@ -31,10 +31,14 @@ A batch is `launch.specs.input_specs`'s layout: {"tokens", "labels"}, with
 `forward` and `loss_fn` take an `LM` or its tree; over a tree, gradients
 reach the tree's leaves.
 
-MoE and MLA layers, meshes and the configs the registry lists in
-``NOT_PORTED`` are not ported yet and raise `NotImplementedError`
-(ROADMAP.md §1) before anything is allocated: the published Jamba config,
-with its experts, raises; its dense cut (``n_experts=0``) runs.
+A layer's FFN is dense or MoE (`moe.moe_ffn`), as the reference's
+`_stage_layout` decides: DeepSeek's dense prefix, Jamba's MoE on every
+other layer of its period of 8. MoE layers return the router's
+load-balance term, which `forward` sums (``aux``) and `loss_fn` adds as
+0.01 * aux / n_layers. Attention is GQA, or DeepSeek's MLA with
+``use_mla``. Meshes (sharded models, expert parallelism) and the configs
+the registry lists in ``NOT_PORTED`` raise `NotImplementedError`
+(ROADMAP.md §1) before anything is allocated.
 """
 from __future__ import annotations
 
@@ -42,25 +46,28 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.registry import NOT_PORTED, canonical
-from ..core.types import tree_leaves, tree_map
+from ..core.types import tree_map
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv as rwk
 from .config import ModelConfig
-from .layers import cross_entropy, dense_init, dtype_of, rms_norm, softcap
+from .layers import ShapesOnly, constant, cross_entropy, dense_init, dtype_of, rms_norm, softcap
 
 
 class Block:
-    """One layer: ``ln``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, optional
+    """One layer: ``ln``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]} (MLA:
+    {w_dq, q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo}), optional
     ``post_ln``, ``ffn_ln``, ``ffn`` {w_gate, w_up, w_down | w_up, b_up,
-    w_down, b_down}, optional ``post_ffn_ln``; a ``mamba`` layer has
-    ``mamba`` {in_proj, conv_w, ...} in place of ``attn``; an ``rwkv`` layer
-    has ``ln``, ``rwkv`` (time and channel mix), optional ``post_ln`` and
-    ``ffn_ln``. Its tensors are views of the tree's stacked leaves."""
+    w_down, b_down} (MoE: {router, w_gate, w_up, w_down} over the experts,
+    optional ``shared`` and ``dense_res`` dense FFNs), optional
+    ``post_ffn_ln``; a ``mamba`` layer has ``mamba`` {in_proj, conv_w, ...}
+    in place of ``attn``; an ``rwkv`` layer has ``ln``, ``rwkv`` (time and
+    channel mix), optional ``post_ln`` and ``ffn_ln``. ``is_moe``: whether
+    ``ffn`` is routed. Its tensors are views of the tree's stacked leaves."""
 
-    def __init__(self, kind: str, p: dict):
-        self.kind = kind
+    def __init__(self, kind: str, is_moe: bool, p: dict):
+        self.kind, self.is_moe = kind, is_moe
         for name, value in p.items():
             setattr(self, name, value)
 
@@ -73,15 +80,14 @@ class LM:
     stage's block ``b{j}`` (`torch.unbind` along the period axis)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
-        kinds = layer_kinds(cfg)
         self.cfg, self.tree = cfg, tree
         self.embed, self.final_ln, self.head = tree["embed"], tree["final_ln"], tree.get("head")
         self.frontend_proj = tree.get("frontend_proj")
-        pat, layers = cfg.pattern_len, []
-        for name, n_periods, _moe in cfg.stages():
-            blocks = [_unbind(tree["stages"][name][f"b{j}"], n_periods) for j in range(pat)]
-            layers += [blocks[j][period] for period in range(n_periods) for j in range(pat)]
-        self.layers = [Block(kind, p) for kind, p in zip(kinds, layers, strict=True)]
+        self.layers = []
+        for name, n_periods, pat in stage_layout(cfg):
+            blocks = [_unbind(tree["stages"][name][f"b{j}"], n_periods) for j in range(len(pat))]
+            self.layers += [Block(kind, is_moe, blocks[j][period])
+                            for period in range(n_periods) for j, (kind, is_moe) in enumerate(pat)]
 
     @property
     def device(self) -> torch.device:
@@ -100,8 +106,6 @@ def _unbind(node, n: int) -> list:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` for what the port does not run yet."""
-    if cfg.use_mla or cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE/MLA layers are not ported yet: ROADMAP.md §1, item 12")
     arch = canonical(cfg.name)
     if arch in NOT_PORTED:
         raise NotImplementedError(f"{cfg.name} is not ported yet: ROADMAP.md §1, {NOT_PORTED[arch]}")
@@ -110,65 +114,97 @@ def check_ported(cfg: ModelConfig) -> None:
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
 
 
-def layer_kinds(cfg: ModelConfig) -> list[str]:
-    """The block kind of every layer, in the reference's order (the stages of
-    `ModelConfig.stages`, each a cycle over ``block_pattern``)."""
+def stage_layout(cfg: ModelConfig) -> list:
+    """[(stage name, n_periods, [(kind, is_moe) per pattern position])], the
+    reference's `_stage_layout`: a layer's FFN is MoE where its stage has
+    experts and `ModelConfig.is_moe_layer` holds at its position in the
+    stage's first period (one pattern for every period), never in an
+    ``rwkv`` layer (its channel mix is its FFN)."""
     check_ported(cfg)
-    return [kind for _name, n_periods, _moe in cfg.stages()
-            for _ in range(n_periods) for kind in cfg.block_pattern]
+    out, offset = [], 0
+    for name, n_periods, moe_on in cfg.stages():
+        pat = [(kind, moe_on and cfg.is_moe_layer(offset + j) and kind != "rwkv")
+               for j, kind in enumerate(cfg.block_pattern)]
+        if cfg.n_experts and moe_on and cfg.pattern_len % cfg.moe_every and cfg.moe_every != 1:
+            raise ValueError(f"{cfg.name}: moe_every {cfg.moe_every} does not divide the "
+                             f"pattern's {cfg.pattern_len} layers")
+        out.append((name, n_periods, pat))
+        offset += n_periods * cfg.pattern_len
+    return out
+
+
+def layer_layout(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(kind, is_moe) of every layer, in the reference's order (the stages
+    of `stage_layout`, period by period)."""
+    return [layer for _name, n_periods, pat in stage_layout(cfg)
+            for _ in range(n_periods) for layer in pat]
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """The block kind of every layer, in the reference's order."""
+    return [kind for kind, _moe in layer_layout(cfg)]
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(generator, cfg: ModelConfig, kind: str) -> dict:
+def _init_block(generator, cfg: ModelConfig, kind: str, is_moe: bool, out=None) -> dict:
+    """One layer's parameters; with ``out`` (the layer's slot in the stacked
+    tree: views, laid out as the result) each leaf is written there."""
     dt = dtype_of(cfg)
     d = cfg.d_model
-    zeros = lambda: torch.zeros((d,), dtype=dt, device=generator.device)
-    p = {"ln": zeros()}
+    o = out or {}
+    zeros = lambda name: constant((d,), 0.0, dt, generator.device, o.get(name))
+    p = {"ln": zeros("ln")}
     if kind == "rwkv":
-        p["rwkv"] = rwk.init_rwkv_params(generator, cfg, dt)
+        p["rwkv"] = rwk.init_rwkv_params(generator, cfg, dt, o.get("rwkv"))
     elif kind == "mamba":
-        p["mamba"] = mam.init_mamba_params(generator, cfg, dt)
+        p["mamba"] = mam.init_mamba_params(generator, cfg, dt, o.get("mamba"))
+    elif cfg.use_mla:
+        p["attn"] = attn.init_mla_params(generator, cfg, dt, o.get("attn"))
     else:
-        p["attn"] = attn.init_attn_params(generator, cfg, dt)
+        p["attn"] = attn.init_attn_params(generator, cfg, dt, o.get("attn"))
     if cfg.post_norm:
-        p["post_ln"] = zeros()
-    p["ffn_ln"] = zeros()
+        p["post_ln"] = zeros("post_ln")
+    p["ffn_ln"] = zeros("ffn_ln")
     if kind == "rwkv":  # the channel mix, in ``rwkv``, is its FFN
         return p
-    p["ffn"] = moe_mod.init_dense_ffn(generator, cfg, dt)
+    if is_moe:
+        p["ffn"] = moe_mod.init_moe_params(generator, cfg, dt, o.get("ffn"))
+    else:
+        p["ffn"] = moe_mod.init_dense_ffn(generator, cfg, dt, out=o.get("ffn"))
     if cfg.post_norm:
-        p["post_ffn_ln"] = zeros()
+        p["post_ffn_ln"] = zeros("post_ffn_ln")
     return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
-    """Random parameters of the reference's law, on the generator's device:
-    drawn layer by layer in the reference's order, each layer written into
-    its period of the stacked leaves (so init holds one layer beyond the
-    tree)."""
-    layer_kinds(cfg)                          # raises for what is not ported, before allocating
+    """Random parameters of the reference's law, on the generator's device.
+    The stacked tree is sized first (a shape pass on the meta device) and
+    each layer, in the reference's order, is drawn straight into its period
+    of the stacked leaves (an expert stack a run of experts at a time), so
+    init holds nothing beside the tree but one draw's float32 temporaries."""
+    layout = stage_layout(cfg)                # raises for what is not ported, before allocating
     dt = dtype_of(cfg)
     d = cfg.d_model
+    dev = generator.device
     tree = {"embed": dense_init(generator, (cfg.vocab, d), scale=0.02, dtype=dt)}
     out_dim = cfg.n_classes if cfg.arch_type == "audio" else cfg.vocab
     head = None if cfg.tie_embeddings else dense_init(generator, (d, out_dim), dtype=dt)
     if cfg.frontend is not None:
         tree["frontend_proj"] = dense_init(generator, (cfg.frontend_dim, d), dtype=dt)
     stages = {}
-    for name, n_periods, _moe in cfg.stages():
-        blocks = [None] * cfg.pattern_len
+    for name, n_periods, pat in layout:
+        blocks = {f"b{j}": tree_map(lambda m: torch.empty((n_periods, *m.shape), dtype=m.dtype, device=dev),
+                                    _init_block(ShapesOnly(), cfg, kind, is_moe))
+                  for j, (kind, is_moe) in enumerate(pat)}
         for period in range(n_periods):
-            for j, kind in enumerate(cfg.block_pattern):
-                p = _init_block(generator, cfg, kind)
-                if blocks[j] is None:
-                    blocks[j] = tree_map(lambda x: x.new_empty((n_periods, *x.shape)), p)
-                for dst, src in zip(tree_leaves(blocks[j]), tree_leaves(p), strict=True):
-                    dst[period].copy_(src)
-        stages[name] = {f"b{j}": block for j, block in enumerate(blocks)}
-    tree["final_ln"] = torch.zeros((d,), dtype=dt, device=generator.device)
+            for j, (kind, is_moe) in enumerate(pat):
+                slot = tree_map(lambda x: x[period], blocks[f"b{j}"])
+                _init_block(generator, cfg, kind, is_moe, out=slot)
+        stages[name] = blocks
+    tree["final_ln"] = torch.zeros((d,), dtype=dt, device=dev)
     if head is not None:
         tree["head"] = head
     tree["stages"] = stages
@@ -184,11 +220,16 @@ def _block_window(cfg, kind):
 
 
 def _ffn(blk: Block, cfg, x):
+    """The second residual of a non-``rwkv`` block: (x, the MoE's aux term,
+    0.0 for a dense FFN)."""
     h = rms_norm(x, blk.ffn_ln, cfg.norm_eps)
-    out = moe_mod.dense_ffn(blk.ffn, cfg, h)
+    if blk.is_moe:
+        out, aux = moe_mod.moe_ffn(blk.ffn, cfg, h)
+    else:
+        out, aux = moe_mod.dense_ffn(blk.ffn, cfg, h), 0.0
     if cfg.post_norm:
         out = rms_norm(out, blk.post_ffn_ln, cfg.norm_eps)
-    return x + out
+    return x + out, aux
 
 
 def _post(blk: Block, cfg, inner):
@@ -201,22 +242,32 @@ def _channel_mix(blk: Block, cfg, x, state):
     return x + out, c
 
 
-def _apply_block(blk: Block, cfg, x, positions, use_kernel):
+def _mixer(blk: Block, cfg, x, positions, use_kernel):
+    """The first residual of a fresh sequence's ``attn``/``mamba`` layer:
+    x + its attention or Mamba block (post-normed where the config says)."""
     h = rms_norm(x, blk.ln, cfg.norm_eps)
-    if blk.kind == "rwkv":
-        # a fresh sequence: both mixes start from the zero state, and their
-        # final states are discarded, as in the reference's forward
-        inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel)
-        return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None)[0]
     if blk.kind == "mamba":
         # a fresh sequence from the zero state, its final state discarded
         inner, _ = mam.mamba_forward(blk.mamba, cfg, h, None, use_kernel=use_kernel)
+    elif cfg.use_mla:           # the plain chunked attention, as the reference's MLA
+        inner = attn.mla_forward(blk.attn, cfg, h, positions)
     else:
         inner = attn.gqa_forward(
             blk.attn, cfg, h, positions,
             window=_block_window(cfg, blk.kind), use_kernel=use_kernel,
         )
-    return _ffn(blk, cfg, x + _post(blk, cfg, inner))
+    return x + _post(blk, cfg, inner)
+
+
+def _apply_block(blk: Block, cfg, x, positions, use_kernel):
+    """One layer of a fresh sequence: (x, its aux term)."""
+    if blk.kind == "rwkv":
+        # a fresh sequence: both mixes start from the zero state, and their
+        # final states are discarded, as in the reference's forward
+        h = rms_norm(x, blk.ln, cfg.norm_eps)
+        inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel)
+        return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None)[0], 0.0
+    return _ffn(blk, cfg, _mixer(blk, cfg, x, positions, use_kernel))
 
 
 def _project(x, w):
@@ -253,54 +304,63 @@ def _no_mesh(mesh):
 
 
 def _run_layers(params: LM, cfg, x, positions, use_kernel, remat):
-    """The layers, one period (``pattern_len`` layers) at a time. With
-    ``remat`` under grad mode each period is recomputed in the backward pass
-    (the reference's jax.checkpoint of its scanned period): only the
-    residual stream between periods is kept."""
+    """The layers, one period (``pattern_len`` layers) at a time: (x, the
+    sum of the layers' aux terms). With ``remat`` under grad mode each
+    period is recomputed in the backward pass (the reference's
+    jax.checkpoint of its scanned period): only the residual stream between
+    periods is kept."""
     layers = list(params.layers)
     period = cfg.pattern_len
+    total = 0.0
     for i in range(0, len(layers), period):
         def period_fn(x, blocks=layers[i:i + period]):
+            aux = 0.0
             for blk in blocks:
-                x = _apply_block(blk, cfg, x, positions, use_kernel)
-            return x
+                x, a = _apply_block(blk, cfg, x, positions, use_kernel)
+                aux = aux + a
+            return x, aux
 
         if remat and torch.is_grad_enabled():
-            x = checkpoint(period_fn, x, use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(period_fn, x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = period_fn(x)
-    return x
+            x, aux = period_fn(x)
+        total = total + aux
+    return x, total
 
 
 def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat=True):
     """Logits (B, S, V) of ``batch`` (the module's layout; V is n_classes
-    for audio), and the auxiliary loss (0 without MoE). ``params``: an `LM`
-    or its tree (``LM.tree``).
-    ``use_kernel`` picks the route of the attention, the WKV recurrence and
-    the selective scan: "auto" (the CUDA kernels iff on a card), True (the
-    kernels; CPU tensors raise) or False (the plain versions). The kernels
-    are forward only: under grad mode with trainable leaves they raise, so
-    a differentiated forward takes ``use_kernel=False``. ``remat``: see
-    `_run_layers` (no effect without grad mode)."""
+    for audio), and the sum of the MoE layers' load-balance terms (0.0
+    without MoE). ``params``: an `LM` or its tree (``LM.tree``).
+    ``use_kernel`` picks the route of the GQA attention, the WKV recurrence
+    and the selective scan: "auto" (the CUDA kernels iff on a card), True
+    (the kernels; CPU tensors raise) or False (the plain versions); MLA
+    always takes the plain chunked attention, as the reference's does. The
+    kernels are forward only: under grad mode with trainable leaves they
+    raise, so a differentiated forward takes ``use_kernel=False``.
+    ``remat``: see `_run_layers` (no effect without grad mode)."""
     _no_mesh(mesh)
     if not isinstance(params, LM):
         params = LM(cfg, params)
     x, positions = _embed(params, cfg, batch)
-    x = _run_layers(params, cfg, x, positions, use_kernel, remat)
-    return _head(params, cfg, x), 0.0
+    x, aux = _run_layers(params, cfg, x, positions, use_kernel, remat)
+    return _head(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, mesh=None, use_kernel=False, remat=True):
     """Mean token cross-entropy of ``batch``'s ``labels`` (B, S) (labels < 0
     ignored; for audio, so are the positions where ``batch["mask"]`` is
-    False), with the reference's defaults: the plain
-    sequence mixers (the kernels have no backward pass) and remat. The
-    reference's MoE auxiliary term is unreachable (`check_ported` raises for
-    experts); a mesh raises."""
+    False), plus 0.01 * aux / n_layers for a config with experts (the
+    reference's MoE term), with the reference's defaults: the plain
+    sequence mixers (the kernels have no backward pass) and remat. A mesh
+    raises."""
     _no_mesh(mesh)
-    logits, _aux = forward(params, cfg, batch, mesh, use_kernel, remat)
+    logits, aux = forward(params, cfg, batch, mesh, use_kernel, remat)
     mask = batch.get("mask") if cfg.arch_type == "audio" else None
-    return cross_entropy(logits, batch["labels"], mask=mask)
+    loss = cross_entropy(logits, batch["labels"], mask=mask)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +368,10 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None, use_kernel=False, remat=
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]:
-    """One cache per layer: a KV cache (`attention.init_kv_cache`), for an
-    ``rwkv`` layer its state {"shift", "wkv", "shift_c"} (`rwkv.init_rwkv_state`),
-    for a ``mamba`` layer its state {"conv", "h"} (`mamba.init_mamba_state`)."""
+    """One cache per layer: a KV cache (`attention.init_kv_cache`; MLA: the
+    latent cache, `attention.init_mla_cache`), for an ``rwkv`` layer its
+    state {"shift", "wkv", "shift_c"} (`rwkv.init_rwkv_state`), for a
+    ``mamba`` layer its state {"conv", "h"} (`mamba.init_mamba_state`)."""
     dt = dtype_of(cfg)
 
     def one(kind):
@@ -318,6 +379,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]
             return rwk.init_rwkv_state(cfg, batch, dt, device)
         if kind == "mamba":
             return mam.init_mamba_state(cfg, batch, dt, device)
+        if cfg.use_mla:
+            return attn.init_mla_cache(cfg, batch, max_len, dt, device)
         return attn.init_kv_cache(cfg, batch, max_len, _block_window(cfg, kind), dt, device)
 
     return [one(kind) for kind in layer_kinds(cfg)]
@@ -328,7 +391,8 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None)
     """token: (B, 1) int; pos: the position of every row. Updates ``cache``
     in place and returns (logits (B, 1, V), cache). The token embedding is
     looked up whatever the frontend, as in the reference (an encoder's
-    serving skips decode: `launch.specs.shape_skip_reason`)."""
+    serving skips decode: `launch.specs.shape_skip_reason`). A MoE layer
+    routes the B tokens of the step (capacity from T = B)."""
     _no_mesh(mesh)
     x = params.embed[token]
     for blk, c in zip(params.layers, cache):
@@ -343,9 +407,11 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None)
             # one step of the plain recurrence from the carried state
             inner, new = mam.mamba_forward(blk.mamba, cfg, h, c)
             c.update(new)
+        elif cfg.use_mla:
+            inner, _ = attn.mla_decode(blk.attn, cfg, h, pos, c)
         else:
             inner, _ = attn.gqa_decode(blk.attn, cfg, h, pos, c, window=_block_window(cfg, blk.kind))
-        x = _ffn(blk, cfg, x + _post(blk, cfg, inner))
+        x, _ = _ffn(blk, cfg, x + _post(blk, cfg, inner))
     return _head(params, cfg, x), cache
 
 

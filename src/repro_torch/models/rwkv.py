@@ -23,35 +23,39 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
-from .layers import dense_init
+from .layers import constant, dense_init
 
 LORA = 64   # rank of the decay's LoRA
 
 
-def init_rwkv_params(generator, cfg, dtype) -> dict:
+def init_rwkv_params(generator, cfg, dtype, out=None) -> dict:
+    """The time and channel mix's parameters; with ``out`` (their slots in a
+    stacked tree, by name) written there (`layers.dense_init`)."""
     d = cfg.d_model
     hd = cfg.rwkv_head_dim
     H = d // hd
     dev = generator.device
-    full = lambda shape, value: torch.full(shape, value, dtype=dtype, device=dev)
+    o = out or {}
+    full = lambda name, shape, value: constant(shape, value, dtype, dev, o.get(name))
+    normal = lambda name, shape, scale=None: dense_init(generator, shape, scale, dtype, o.get(name))
     return {
-        "mu": full((5, d), 0.5),                        # shift-mix for r, k, v, g, w
-        "wr": dense_init(generator, (d, d), dtype=dtype),
-        "wk": dense_init(generator, (d, d), dtype=dtype),
-        "wv": dense_init(generator, (d, d), dtype=dtype),
-        "wg": dense_init(generator, (d, d), dtype=dtype),
-        "w_lora_a": dense_init(generator, (d, LORA), dtype=dtype),
-        "w_lora_b": dense_init(generator, (LORA, d), scale=0.01, dtype=dtype),
-        "w_bias": full((d,), -6.0),                     # slow default decay
-        "u": dense_init(generator, (H, hd), dtype=dtype),   # bonus
-        "ln_g": full((d,), 1.0),                        # per-head group norm
-        "ln_b": full((d,), 0.0),
-        "wo": dense_init(generator, (d, d), dtype=dtype),
+        "mu": full("mu", (5, d), 0.5),                  # shift-mix for r, k, v, g, w
+        "wr": normal("wr", (d, d)),
+        "wk": normal("wk", (d, d)),
+        "wv": normal("wv", (d, d)),
+        "wg": normal("wg", (d, d)),
+        "w_lora_a": normal("w_lora_a", (d, LORA)),
+        "w_lora_b": normal("w_lora_b", (LORA, d), 0.01),
+        "w_bias": full("w_bias", (d,), -6.0),           # slow default decay
+        "u": normal("u", (H, hd)),                      # bonus
+        "ln_g": full("ln_g", (d,), 1.0),                # per-head group norm
+        "ln_b": full("ln_b", (d,), 0.0),
+        "wo": normal("wo", (d, d)),
         # channel mix
-        "mu_c": full((2, d), 0.5),
-        "ck": dense_init(generator, (d, cfg.d_ff), dtype=dtype),
-        "cv": dense_init(generator, (cfg.d_ff, d), dtype=dtype),
-        "cr": dense_init(generator, (d, d), dtype=dtype),
+        "mu_c": full("mu_c", (2, d), 0.5),
+        "ck": normal("ck", (d, cfg.d_ff)),
+        "cv": normal("cv", (cfg.d_ff, d)),
+        "cr": normal("cr", (d, d)),
     }
 
 

@@ -573,6 +573,50 @@ def test_jamba_prefill_goes_through_the_kernels(card):
         Ma.mamba_forward(params.layers[0].mamba, cfg, x, cache[0], use_kernel=True)
 
 
+@pytest.mark.cuda
+def test_moe_layer_on_the_card_is_deterministic_and_matches_its_oracle(card):
+    """The smoke Arctic MoE layer (4 experts top-2, the dense residual) on
+    the card: in bf16 the combine gives the CPU's sequential scatter-add in
+    (E, C) order bit for bit, and two runs are equal (no atomics); in
+    float32, at capacity factor 0.5 (assignments dropped), each token's
+    output is its kept assignments' gated expert SwiGLUs plus the residual,
+    computed token by token."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M, moe
+    from repro_torch.models.config import smoke_variant
+
+    base = smoke_variant(get_config("arctic_480b")).scaled(capacity_factor=0.5)
+    for dtype in ("bfloat16", "float32"):
+        cfg = base.scaled(dtype=dtype)
+        params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+        ffn = params.layers[0].ffn
+        x = torch.randn((96, cfg.d_model), generator=torch.Generator(device=card).manual_seed(1),
+                        device=card).to(getattr(torch, dtype))
+        got, _ = moe.moe_ffn_local(ffn, cfg, x)
+        w, ids, _ = moe.router_topk(ffn["router"], x, cfg.top_k)
+        C = moe.capacity_of(cfg, 96, cfg.n_experts)
+        tok, gate, slots = moe._dispatch_tables(ids, w, cfg.n_experts, C)
+        assert int((slots == cfg.n_experts * C).sum()) > 0
+        if dtype == "bfloat16":
+            assert torch.equal(moe.moe_ffn_local(ffn, cfg, x)[0], got)
+            y = (moe._expert_compute(ffn, x[tok]) * gate[..., None].to(x.dtype)).cpu()
+            want = torch.zeros((96, cfg.d_model), dtype=torch.bfloat16)
+            for i, t in enumerate(tok.reshape(-1).tolist()):
+                want[t] += y.reshape(-1, cfg.d_model)[i]
+            assert torch.equal(moe._combine(y.to(card), slots, x.dtype).cpu(), want)
+            continue
+        want, load = moe.dense_ffn(ffn["dense_res"], cfg, x), [0] * cfg.n_experts
+        for t, (experts, gates) in enumerate(zip(ids.tolist(), w.tolist())):
+            for e, g in zip(experts, gates):
+                load[e] += 1
+                if load[e] <= C:
+                    h = F.silu(x[t] @ ffn["w_gate"][e]) * (x[t] @ ffn["w_up"][e])
+                    want[t] += g * (h @ ffn["w_down"][e])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # the device guard
 # ---------------------------------------------------------------------------

@@ -309,12 +309,21 @@ def test_init_params_builds_the_reference_tree(arch):
         assert tp.head.shape == (cfg.d_model, cfg.n_classes)
 
 
-@pytest.mark.parametrize("arch", sorted(registry.NOT_PORTED))
+@pytest.mark.parametrize("arch", ["arctic_480b", "deepseek_v3_671b"])
 def test_unported_archs_raise_naming_the_roadmap_item(arch):
-    """An LM config the port does not run raises from `init_params`, before
-    anything is allocated (its config is plain data `get_config` returns)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item \d+"):
-        M.init_params(registry.get_config(arch), torch.Generator().manual_seed(0))
+    """The two configs that raised until ROADMAP item 12 (MoE and MLA) now
+    build: the registry lists nothing as unported, and the smoke variant's
+    init gives the reference's tree (experts, MLA, DeepSeek's dense prefix)."""
+    assert registry.NOT_PORTED == {}
+    jcfg, cfg = _configs(arch)
+    tp = M.init_params(cfg, torch.Generator().manual_seed(0))
+    want = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), jcfg))
+    got = jax.tree_util.tree_flatten_with_path(bridge.lm_params_to_numpy(tp))[0]
+    want = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
+    assert [x.shape for _, x in got] == [tuple(x.shape) for _, x in want]
+    assert any(blk.is_moe for blk in tp.layers)
+    assert ("w_uk" in tp.layers[0].attn) == (arch == "deepseek_v3_671b")
 
 
 @pytest.mark.parametrize("arch", registry.list_archs())
@@ -342,13 +351,13 @@ def test_unported_paths_raise():
         M.prefill(tp, cfg, toks, use_kernel=True)
     with pytest.raises(NotImplementedError):
         M.prefill(tp, cfg, toks, mesh=object())
-    for bad in (dict(n_experts=4, top_k=2), dict(use_mla=True)):
-        with pytest.raises(NotImplementedError):
-            M.init_params(cfg.scaled(**bad), torch.Generator().manual_seed(0))
-    # mamba blocks run; the published Jamba's 16 experts do not (raised before
-    # anything is allocated)
-    with pytest.raises(NotImplementedError, match=r"MoE.*ROADMAP\.md §1, item 12"):
-        M.init_params(registry.get_config("jamba_1_5_large_398b"), torch.Generator().manual_seed(0))
+    # MoE layers run; expert parallelism over a mesh does not (ROADMAP item 11b)
+    moe_cfg = smoke_variant(registry.get_config("arctic_480b"))
+    moe_lm = M.init_params(moe_cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 11b"):
+        M.prefill(moe_lm, moe_cfg, toks, mesh=object())
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 11b"):
+        moe.moe_ffn(moe_lm.layers[0].ffn, moe_cfg, torch.zeros((1, 8, moe_cfg.d_model)), mesh=object())
 
 
 def test_port_imports_neither_jax_nor_the_reference():

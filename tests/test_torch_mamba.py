@@ -352,8 +352,11 @@ def test_mamba_forward_refuses_the_kernel_on_the_cpu_and_with_a_state():
 
 def test_jamba_config_equals_reference():
     """The published config field by field (and its cut's); it keeps its 16
-    experts, so building it raises naming ROADMAP item 12, and the cut runs
-    Mamba and attention blocks in the reference's order."""
+    experts, which the port builds (held here at smoke width: one period of
+    the published widths with them is 45 B parameters): the smoke Jamba with
+    its experts has the reference's tree, MoE on every other layer of each
+    period, and the cut runs Mamba and attention blocks in the reference's
+    order."""
     full, jfull = registry.get_config(ARCH), jget_config(ARCH)
     for ours, theirs in ((full, jfull), (full.scaled(n_layers=8, **DENSE), jfull.scaled(n_layers=8, **DENSE)),
                          _configs()[::-1]):
@@ -362,8 +365,16 @@ def test_jamba_config_equals_reference():
     assert full == registry.get_config("jamba-1-5-large-398b")
     assert (full.n_layers, full.d_model, full.n_experts, full.ssm_state) == (72, 8192, 16, 16)
     assert full.param_count() == jfull.param_count()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 12"):
-        M.init_params(full.scaled(n_layers=8), torch.Generator().manual_seed(0))
+    jmoe, moe_cfg = jsmoke(jfull), smoke_variant(full)
+    assert moe_cfg.n_experts == 4
+    tp = M.init_params(moe_cfg, torch.Generator().manual_seed(0))
+    want = jax.tree_util.tree_flatten_with_path(
+        jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), jmoe)))[0]
+    got = jax.tree_util.tree_flatten_with_path(bridge.lm_params_to_numpy(tp))[0]
+    assert [(jax.tree_util.keystr(p), x.shape) for p, x in got] == \
+        [(jax.tree_util.keystr(p), tuple(x.shape)) for p, x in want]
+    assert M.layer_layout(moe_cfg) == [(k, j % 2 == 1) for j, k in enumerate(
+        ["mamba"] * 4 + ["attn"] + ["mamba"] * 3)] * 2
     cut = full.scaled(n_layers=8, **DENSE)
     assert M.layer_kinds(cut) == ["mamba"] * 4 + ["attn"] + ["mamba"] * 3
 
