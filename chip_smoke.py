@@ -30,9 +30,9 @@ the CPU in place of the card):
    once and every device owning one, every scenario feasible, the kernel
    launched at least ``outer_iters + 1`` times per solve, and
    ``use_kernel_objective=False`` must give the identical X, P and rho
-   (PGD's twin at default depth; SCA's at cut depth against a kernel solve
-   at that depth, `SCA_TWIN_REDUCED`). A small input solved on the card
-   and on the CPU must give the same X.
+   (each config's twin at cut depth against a kernel solve at that depth,
+   `TWIN_REDUCED`). A small input solved on the card and on the CPU must
+   give the same X.
 
 4. build check of the flash-attention kernel of
    `repro_torch.kernels.flash_attention` against its plain version (the
@@ -78,7 +78,14 @@ the CPU in place of the card):
    its first positions, so a fixed logit tolerance would fail the plain
    version against itself). One more warm kernel prefill runs under
    `torch.profiler`: the kernel's device time and launches in the trace,
-   the matrix products' device time and the device's busy time;
+   the matrix products' device time and the device's busy time. Then the
+   mesh path (`mesh_path`): the same warm parameters placed on a (1, 1)
+   ("data", "model") mesh of this card (`launch.mesh.open_mesh`, a
+   one-process nccl group), as DTensors whose local tensors are the
+   parameters themselves; its prefill must equal the unsharded one bit
+   for bit at the same 26 launches, and two `ServeLoop` decode steps on a
+   cache placed by `cache_specs` the unsharded loop's, launching nothing
+   (likewise in phases 8 and 11: 24 WKV6, 7 scans + 1 flash);
 6. `ServeLoop` on the same model: 8 requests of 8 tokens, 4 slots, 16 new
    tokens each, max_len 256; every request must come back with 16 tokens
    in the vocabulary;
@@ -103,7 +110,8 @@ the CPU in place of the card):
 8. the RWKV slice: `rwkv6_1_6b` at full width in bfloat16 from a seeded
    `torch.Generator`; `prefill(use_kernel=True)` on B = 1, S = 4096 tokens
    must launch the WKV kernel once per layer (24) and give finite logits,
-   with the yardsticks, logit gates and profile of phase 5;
+   with the logit gates and profile of phase 5; the yardsticks run on the
+   model cut to 4 layers (`LM_REDUCED`), as phase 19's Gemma-2 9B's do;
 9. `ServeLoop` on the RWKV model, as phase 6 (decode carries the state
    through the plain one-step recurrence and launches no kernel);
 10. the selective-scan kernel of `repro_torch.kernels.mamba_scan` against its
@@ -139,7 +147,9 @@ the CPU in place of the card):
 13. the scenario families and the paper's baselines: 16 Table-I scenarios
    (N = 10, K = 50) from seed 0 of each of the four families on the card
    (`iid_rayleigh` reuses phase 3's solve), `solve_batch` under
-   ``AllocatorConfig(inner="pgd")``, and the four baselines of
+   ``AllocatorConfig(inner="pgd")`` cut to the reference's smoke allocator
+   (2 outer iterations, 60 PGD steps; `FAMILY_REDUCED`), and the four
+   baselines of
    `repro_torch.core.baselines` on the same batch, one call each. Every leaf
    finite; Alg. A2's X and the equal, computation-only and random
    baselines' X binary with every subcarrier owned once (the
@@ -168,8 +178,8 @@ the CPU in place of the card):
    `iid_rayleigh` stream of 12 requests of sizes (10, 50) (Table I; bucket
    (16, 64)) and (6, 16) (bucket (8, 16)) at the Table-I bbar, Poisson
    arrivals at 20 req/s, `AllocService` with the serving config
-   ``AllocatorConfig(inner="pgd")`` at default iteration counts,
-   `DEFAULT_BUCKETS`, max_batch 8, max_wait 50 ms. Passes: (a) the
+   ``AllocatorConfig(inner="pgd")`` cut to the reference's smoke allocator
+   (2 outer iterations, 60 PGD steps; `SERVE_REDUCED`), `DEFAULT_BUCKETS`, max_batch 8, max_wait 50 ms. Passes: (a) the
    `RealClockDriver` through `pace_stream`, then a drain; (b) the same
    stream and arrivals through `run_load` on the virtual clock; (c) the
    same stream again, all at once, through a ``warmstart=WarmStartConfig()``
@@ -181,9 +191,9 @@ the CPU in place of the card):
    answered once, binary and feasible at its exact shape,
    `Completion.objective` equal to `system.objective` there to rtol 1e-5;
    (a) and (b) give the same req_id -> X; in (c) every request hits and
-   no objective exceeds (b)'s + 1e-5 max(1, |cold|); the kernel launches 8
-   times per cold flush (6 trace entries, the multi-start selection, the
-   flush's scoring) and 15 per flush with a hit (+ the refine pass's 7),
+   no objective exceeds (b)'s + 1e-5 max(1, |cold|); the kernel launches 4
+   times per cold flush (2 trace entries, the multi-start selection, the
+   flush's scoring) and 7 per flush with a hit (+ the refine pass's 3),
    never on the plain path, whose allocations equal its kernel twin's and
    whose objectives lie within phase 2's tolerance of them. Printed:
    latency p50/p99, throughput, `solve_s` per flush, each solver's first
@@ -224,7 +234,16 @@ the CPU in place of the card):
    with trainable leaves raises, naming the plain route. Printed: each
    step's wall, the median warm step, tokens/s, ``mfu_bf16_dense`` (6 x
    parameters x tokens / step time / 989 TFLOP/s), the peak memory, and the
-   last step's device busy share (`torch.profiler`). (b) the smoke variants
+   last step's device busy share (`torch.profiler`). Then one more step
+   on the (1, 1) mesh (`train_on_mesh`, the state placed as views):
+   `loss_fn` there takes the vocab-sharded cross-entropy (a model axis of
+   1 divides the vocab) and must lie within 1e-5 relative of mesh=None's;
+   the step's grad_norm within 1e-4 of mesh=None's on the same state
+   (deterministic algorithms for both); `launch.dryrun.lower_pair` of the
+   same step on a (1, 1) fake mesh, traced in a process of its own beside
+   the phase, must count the step's per-device dot FLOPs within 1% of
+   `launch.op_cost.OpCost` around the real step, and its predicted peak
+   is printed beside the measured one. (b) the smoke variants
    of `gemma2_2b`, `rwkv6_1_6b`, the Jamba dense cut, `arctic_480b` and
    `deepseek_v3_671b` on bigram-chain batches: gradients with remat on and
    off equal bit for bit (deterministic algorithms on for the comparison),
@@ -293,7 +312,8 @@ launch the objective kernel and no other; the training path (17) launches
 none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17, 18 and each
 model of 19) is
 driven with the kernels' launch counts set to 0 just before it and read
-just after (likewise each model of 20). With ``--profile``, one short solve
+just after (likewise each model of 20, each (1, 1) mesh path of 5, 8 and
+11, and phase 17's mesh step). With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -305,6 +325,7 @@ usage error).
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import json
@@ -383,14 +404,22 @@ KERNEL_OF_KIND = {"attn": "flash_attention", "attn_local": "flash_attention",
                   "rwkv": "rwkv6_scan", "mamba": "mamba_scan"}
 #: what marks a matrix product's kernel in a trace (cuBLAS and CUTLASS names)
 PRODUCT_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
-#: the LM paths: (arch, prefill length, the cut of its config, as
-#: `ModelConfig.scaled` arguments)
-LM_PATHS = (("gemma2_2b", 8192, {}),                  # phases 5-6 (> the 4096 window)
-            ("rwkv6_1_6b", 4096, {}),                 # phases 8-9 (RWKV-6's training context)
+#: the LM paths: (arch, prefill length, the cut of its config, the
+#: yardsticks' cut or None for the same model; cuts as `ModelConfig.scaled`
+#: arguments)
+LM_PATHS = (("gemma2_2b", 8192, {}, None),            # phases 5-6 (> the 4096 window)
+            # phases 8-9 (RWKV-6's training context); the yardsticks on 4 layers
+            ("rwkv6_1_6b", 4096, {}, dict(n_layers=4)),
             # phases 11-12: one period, the MoE FFNs dense; the port runs the
             # experts (phase 20's models), but one period with them is 45.1 B
             # parameters, 90 GB in bf16: the cut is for memory
-            ("jamba_1_5_large_398b", 4096, dict(n_layers=8, n_experts=0, top_k=0)))
+            ("jamba_1_5_large_398b", 4096, dict(n_layers=8, n_experts=0, top_k=0), None))
+#: the LM paths' cuts of time, by arch
+LM_REDUCED = {
+    "rwkv6_1_6b": ["the yardsticks (kernel vs plain bf16; float32 layer by layer; float32 kernel "
+                   "vs a one-ulp embedding): n_layers 24 -> 4 (at 24 layers the three plain "
+                   "prefills' step-by-step recurrence took 51 s of the script's 1200)"],
+}
 #: phase 19: the models at their published widths and depths in bf16, (arch,
 #: B, S, the yardsticks' cut: `ModelConfig.scaled` arguments, or None for
 #: the full depth); the inputs follow `specs.input_specs`
@@ -455,17 +484,29 @@ SERVE_SIZES = ((10, 50), (6, 16))
 SERVE_REQUESTS = 12
 SERVE_RATE_HZ = 20.0
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S = 8, 0.05
-#: the real-clock driver's drain bound (a flush takes about 20 s)
+#: the real-clock driver's drain bound (a flush takes about 3 s)
 SERVE_TIMEOUT_S = 900.0
-#: phase 3's one cut: the default SCA config's plain-scoring twin (about 50 s
-#: at default depth) runs at `cut_configs()["sca"]` depth, against a kernel
-#: solve at that depth; the PGD twin and both main-path solves keep their
-#: depth
-SCA_TWIN_REDUCED = ("the SCA plain-scoring twin: AllocatorConfig() -> cut_configs()['sca'] "
-                    "(1 outer iteration, P5 1 x 100, 100 PGD steps), held for identical X, P and "
-                    "rho against a kernel solve at that depth: with it at default depth "
-                    "chip_smoke.py took 1214 s, past its 1200 s limit, on an NVIDIA H100 80GB "
-                    "HBM3 at 700 W")
+#: phase 3's cut: each config's plain-scoring twin (about 50 s for SCA's and
+#: 23 s for PGD's at default depth) runs at `cut_configs()` depth, against a
+#: kernel solve at that depth; both main-path solves keep their depth
+TWIN_REDUCED = ("the plain-scoring twins: AllocatorConfig(inner='pgd') -> cut_configs()['pgd'] "
+                "(1 outer iteration, 100 PGD steps), AllocatorConfig() -> cut_configs()['sca'] "
+                "(1 outer iteration, P5 1 x 100, 100 PGD steps), each held for identical X, P and "
+                "rho against a kernel solve at that depth: with the SCA twin at default depth "
+                "chip_smoke.py took 1214 s, past its 1200 s limit, on an NVIDIA H100 80GB HBM3 at "
+                "700 W")
+#: phases 13 and 15: the allocator's depth, cut to the reference's smoke
+#: allocator as phase 16's (its solves are host-bound, about 20 s each at
+#: default depth); with them at default depth chip_smoke.py ran past its
+#: 1200 s limit on an NVIDIA H100 80GB HBM3
+FAMILY_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference's smoke "
+                  "allocator, AllocatorConfig(inner='pgd', outer_iters=2, "
+                  "pgd=PGDConfig(steps=60)), for the three families phase 3 does not solve "
+                  "(about 27 s each at default depth)")
+SERVE_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference's smoke "
+                 "allocator, AllocatorConfig(inner='pgd', outer_iters=2, "
+                 "pgd=PGDConfig(steps=60)): at default depth a cold flush took about 26 s and "
+                 "the phase about 280 s")
 #: phase 16: `fedsem_e2e`'s seed, and its cut
 FEDSEM_SEED = 0
 FEDSEM_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference's smoke "
@@ -763,19 +804,15 @@ def phase_slice(device):
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
     main_path_launches = only_objective_launched("the allocator path")    # ... and ends here
 
-    # the plain-scoring twins: PGD's at default depth, against the solve
-    # above; SCA's at cut depth (`SCA_TWIN_REDUCED`), against a kernel solve
-    # at that depth, whose launches are a comparison's, not the path's
-    twins = {"pgd": (configs["pgd"], None), "sca": (cut_configs()["sca"], SCA_TWIN_REDUCED)}
+    # the plain-scoring twins at cut depth (`TWIN_REDUCED`), each against a
+    # kernel solve at that depth, whose launches are a comparison's, not the
+    # path's
     compare_launches = 0
-    for name, (cfg, reduced) in twins.items():
-        if reduced is None:
-            on = solves[name]["res"].alloc
-        else:
-            before = kernel.launches
-            on = solve_batch(params, w, cfg).alloc
-            compare_launches += kernel.launches - before
-            solves[name]["plain_scoring_reduced"] = reduced
+    for name, cfg in cut_configs().items():
+        before = kernel.launches
+        on = solve_batch(params, w, cfg).alloc
+        compare_launches += kernel.launches - before
+        solves[name]["plain_scoring_reduced"] = TWIN_REDUCED
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         off = solve_batch(params, w, cfg._replace(use_kernel_objective=False))
@@ -785,8 +822,9 @@ def phase_slice(device):
             check(torch.equal(getattr(off.alloc, leaf), getattr(on, leaf)),
                   f"solve_batch[{name}]: use_kernel_objective=False changes {leaf}")
         solves[name]["plain_scoring_wall_s"] = wall
-        print(f"solve_batch[{name}] use_kernel_objective=False: {wall:.3f} s wall, identical X, P, "
-              "rho" + ("" if reduced is None else f" (reduced: {reduced})"), flush=True)
+        print(f"solve_batch[{name}] use_kernel_objective=False at cut depth: {wall:.3f} s wall, "
+              "identical X, P, rho", flush=True)
+    print(f"solve_batch reduced: {TWIN_REDUCED}", flush=True)
     check(kernel.launches == main_path_launches + compare_launches,
           "the plain scoring path launched the kernel")
 
@@ -804,7 +842,8 @@ def phase_slice(device):
 def cut_configs() -> dict:
     """The serving and the default config at cut depth (1 outer iteration,
     100 PGD steps; SCA's P5 1 x 100): their step structure, a fraction of
-    their steps, for the profiled solves and phase 15's profiled flush."""
+    their steps, for phase 3's plain-scoring twins, the profiled solves and
+    phase 15's profiled flush."""
     from repro_torch.core import AllocatorConfig
     from repro_torch.core.p5 import P5Config
     from repro_torch.core.pgd import PGDConfig
@@ -1304,7 +1343,7 @@ def path_launches(M, cfg) -> dict:
     return {name: sum(KERNEL_OF_KIND[k] == name for k in kinds) for name in KERNELS}
 
 
-def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None):
+def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None, mesh=None):
     """Full-width ``arch`` (cut by ``cut``, `ModelConfig.scaled` arguments)
     prefill of a (B, S) batch (`lm_batch`) through its kernels (one launch
     per layer of each kernel's block kind) and, for a decoder, `ServeLoop`
@@ -1313,7 +1352,10 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None):
     ``cfg.scaled(**yard_cut)`` (phases 19 and 20). ``checks(params, cfg,
     batch) -> dict``, if given, runs on the bf16 model after the path and
     on the float32 model after its layer-by-layer run (phase 20's gates).
-    Returns (report, each kernel's launches on the path)."""
+    With ``mesh`` (the (1, 1) mesh on the card) the same warm model runs
+    its mesh path too (`mesh_path`), its own path for the launch counts.
+    Returns (report, each kernel's launches on the path, the mesh path's
+    report and launches or (None, None))."""
     import importlib
 
     import torch
@@ -1393,6 +1435,9 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None):
         return sub.reshape(-1, sub.shape[-1])
 
     sub_k = logits_k[:, rows].float().reshape(-1, out_dim)
+    meshed, mesh_launches = None, None
+    if mesh is not None:                                  # the same weights; a second logits tensor
+        meshed, mesh_launches = mesh_path(params, cfg, batch, logits_k, mesh, want, decoder)
     del logits_k
     run(params, cfg, True, "kernel_s")                    # a second, warm call
     prof = profile_prefill(M, params, cfg, batch, {name: want[name] for name in KERNEL_SYMBOLS})
@@ -1467,7 +1512,76 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None):
                   layer_gaps=layer_gaps, checks=checked)
     if decoder:
         report.update(serve_steps=stats["steps"], serve_s=serve_s, serve_ms_per_step=ms_step)
-    return report, launches
+    report["mesh"] = meshed
+    return report, launches, mesh_launches
+
+
+def mesh_path(params, cfg, batch, logits, mesh, want, decoder):
+    """The model's mesh path on the (1, 1) mesh, over `phase_lm`'s warm
+    bf16 parameters placed by `parallel.sharding.param_specs` (DTensors
+    whose local tensors are the parameters themselves, no copy): the
+    prefill (``use_kernel=True``) must give the logits of the unsharded
+    prefill (``logits``) bit for bit at the same kernel launches, and two `ServeLoop` decode steps on a cache placed by
+    `cache_specs` the unsharded loop's logits bit for bit, launching no
+    kernel. Returns (report, launches), the path's own counts."""
+    import importlib
+
+    import torch
+
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as SH
+
+    kernels = {name: importlib.import_module(f"repro_torch.kernels.{name}.kernel") for name in KERNELS}
+    t_path = time.perf_counter()
+    placed = SH.shard_tree(mesh, SH.param_specs(params.tree), params.tree)
+    check(placed["embed"].to_local().data_ptr() == params.tree["embed"].data_ptr(),
+          f"{cfg.name}: the mesh's parameters are a copy, not the model's own tensors")
+    zero_launches()                                       # the mesh path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = M.prefill(placed, cfg, batch, mesh=mesh, use_kernel=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {name: k.launches for name, k in kernels.items()}
+    check(tuple(got.shape) == tuple(logits.shape), f"mesh prefill logits {tuple(got.shape)}")
+    same_prefill = torch.equal(got.to_local(), logits)
+    del got
+    same_decode, steps = None, 2
+    t_decode = time.perf_counter()
+    if decoder:
+        loops = (ServeLoop(cfg, params, 4, 256), ServeLoop(cfg, placed, 4, 256, mesh=mesh))
+        gen = torch.Generator(device=params.device).manual_seed(3)
+        same_decode = True
+        for pos in range(steps):
+            tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device=params.device)
+            a, b = loops[0].step(tok, pos), loops[1].step(tok, pos)
+            same_decode = same_decode and torch.equal(a, b.to_local())
+        del loops
+    launches = {name: k.launches for name, k in kernels.items()}   # ... and ends here
+    wall, decode_s = time.perf_counter() - t_path, time.perf_counter() - t_decode
+    check(prefill_launches == want,
+          f"{cfg.name} mesh prefill launched the kernels {prefill_launches} times, want {want}")
+    check(launches == prefill_launches, f"{cfg.name} mesh ServeLoop launched a kernel: {launches}")
+    check(same_prefill, f"{cfg.name}: the (1, 1) mesh's prefill logits differ from the unsharded ones")
+    check(same_decode is not False, f"{cfg.name}: the (1, 1) mesh's decode logits differ from the unsharded ones")
+    print(f"{cfg.name} on the (1, 1) mesh: prefill {prefill_s:.3f} s (warm), logits bit for bit: "
+          f"{same_prefill}; launches {prefill_launches}; {steps if decoder else 0} ServeLoop decode "
+          f"steps bit for bit: {same_decode} ({decode_s:.2f} s with the caches); the mesh path "
+          f"{wall:.2f} s", flush=True)
+    return dict(prefill_s=prefill_s, wall_s=wall, decode_s=decode_s, launches=prefill_launches,
+                prefill_bit_for_bit=same_prefill, decode_bit_for_bit=same_decode), launches
+
+
+def phase_lm_path(device, i, mesh):
+    """Phases 5-6, 8-9 or 11-12: `LM_PATHS[i]` through `phase_lm` with its
+    mesh path, its cuts of time (`LM_REDUCED`) in its report."""
+    arch, S, cut, yard_cut = LM_PATHS[i]
+    rep, launches, meshed = phase_lm(device, arch, S, cut, yard_cut=yard_cut, mesh=mesh)
+    if arch in LM_REDUCED:
+        rep["reduced"] = LM_REDUCED[arch]
+        print(f"{arch} reduced: " + "; ".join(LM_REDUCED[arch]), flush=True)
+    return rep, launches, meshed
 
 
 def phase_models(device):
@@ -1477,16 +1591,14 @@ def phase_models(device):
     import torch
 
     reports, launches = {}, {}
-    t_phase = time.perf_counter()
     for arch, B, S, yard_cut in MODEL_PATHS:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rep, n = phase_lm(device, arch, S, {}, B=B, yard_cut=yard_cut)
+        rep, n, _ = phase_lm(device, arch, S, {}, B=B, yard_cut=yard_cut)
         rep.update(wall_s=time.perf_counter() - t0, reduced=MODEL_REDUCED[arch])
         reports[arch], launches[arch] = rep, n
         print(f"{arch}: phase 19 part {rep['wall_s']:.2f} s; reduced: "
               + "; ".join(MODEL_REDUCED[arch]), flush=True)
-    print(f"phase 19: {time.perf_counter() - t_phase:.2f} s", flush=True)
     return reports, launches
 
 
@@ -1588,16 +1700,14 @@ def phase_moe(device):
     import torch
 
     reports, launches = {}, {}
-    t_phase = time.perf_counter()
     for arch, B, S, cut, yard_cut in MOE_PATHS:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rep, n = phase_lm(device, arch, S, cut, B=B, yard_cut=yard_cut, checks=moe_mla_checks)
+        rep, n, _ = phase_lm(device, arch, S, cut, B=B, yard_cut=yard_cut, checks=moe_mla_checks)
         rep.update(wall_s=time.perf_counter() - t0, reduced=MOE_REDUCED[arch])
         reports[arch], launches[arch] = rep, n
         print(f"{arch}: phase 20 part {rep['wall_s']:.2f} s; reduced: "
               + "; ".join(MOE_REDUCED[arch]), flush=True)
-    print(f"phase 20: {time.perf_counter() - t_phase:.2f} s", flush=True)
     return reports, launches
 
 
@@ -1635,15 +1745,17 @@ def only_objective_launched(what: str) -> int:
 def phase_families(device, iid_pgd):
     """Phase 13: each scenario family's Table-I batch through Alg. A2 (PGD)
     and the four baselines. ``iid_pgd`` is phase 3's (params, result) on the
-    same ``iid_rayleigh`` draw."""
+    same ``iid_rayleigh`` draw; the other families' solves run at the
+    reference's smoke depth (`FAMILY_REDUCED`)."""
     import torch
 
-    from repro_torch.core import AllocatorConfig, Weights, solve_batch
+    from repro_torch.core import Weights, solve_batch
     from repro_torch.core import baselines as B
     from repro_torch.core.system import feasible, report
+    from repro_torch.launch.fedsem_e2e import SMOKE_ALLOCATOR
     from repro_torch.scenarios import build_classes, get_family, list_families
 
-    cfg = AllocatorConfig(inner="pgd")
+    cfg = SMOKE_ALLOCATOR
     w = Weights.ones(device)
     out = {}
     zero_launches()                                   # the families' path starts here
@@ -1667,7 +1779,8 @@ def phase_families(device, iid_pgd):
             "comp_only": B.comp_opt_only(params, w),
             "random": B.random_allocation(params, 2),
         }
-        rec = dict(solve_s=wall, a2_mean=float(a2.mean()), baselines={})
+        rec = dict(solve_s=wall, a2_mean=float(a2.mean()), baselines={},
+                   reduced=None if wall is None else FAMILY_REDUCED)
         for bname, alloc in bases.items():
             what = f"families[{name}] {bname}"
             for leaf in ("f", "P", "X", "rho"):
@@ -1691,6 +1804,7 @@ def phase_families(device, iid_pgd):
               + f", Alg. A2 mean objective {rec['a2_mean']:.6g}, feasible; baselines' mean "
               + ", ".join(f"{b} {r['mean']:.6g}" for b, r in rec["baselines"].items())
               + f"; infeasible baselines (not compared): {infeasible}", flush=True)
+    print(f"families reduced: {FAMILY_REDUCED}", flush=True)
     n = only_objective_launched("the families' path")    # ... and ends here
     check(n > 0, "the families' path never launched the objective kernel")
     classes = build_classes()
@@ -1957,9 +2071,9 @@ def phase_serving(device):
 
     import torch
 
-    from repro_torch.core import AllocatorConfig, Weights, default_accuracy
-    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.core import Weights, default_accuracy
     from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.launch.fedsem_e2e import SMOKE_ALLOCATOR
     from repro_torch.scenarios import DEFAULT_STREAM_BBAR
     from repro_torch.serve import (
         AllocService, BatchPolicy, RealClockDriver, ServeConfig, WarmStartConfig,
@@ -1968,17 +2082,18 @@ def phase_serving(device):
     )
 
     cfg = ServeConfig(policy=BatchPolicy(max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S),
-                      allocator=AllocatorConfig(inner="pgd"))
+                      allocator=SMOKE_ALLOCATOR)          # `SERVE_REDUCED`
     J = cfg.allocator.outer_iters
     cold_launches, warm_launches = J + 2, 2 * J + 3     # trace, selection, scoring; + refine
-    check((cold_launches, warm_launches) == (8, 15), "unexpected launch counts per flush")
+    check((cold_launches, warm_launches) == (4, 7), "unexpected launch counts per flush")
     requests = scenario_stream(0, SERVE_REQUESTS, scenario="iid_rayleigh", sizes=SERVE_SIZES,
                                bbar=DEFAULT_STREAM_BBAR, device=device)
     check(all(p.g.is_cuda for p in requests), "the stream was not drawn on the card")
     arrivals = poisson_arrivals(1, SERVE_REQUESTS, SERVE_RATE_HZ)
     programs = FirstCalls()
     shapes = collections.Counter()
-    report = {}
+    report = dict(reduced=SERVE_REDUCED)
+    print(f"serving reduced: {SERVE_REDUCED}", flush=True)
     zero_launches()                                   # the serving path starts here
     counting = Counting(shapes, None, kernel, "launch", lambda a: (a.B, a.G, a.N))
     try:
@@ -2321,10 +2436,102 @@ def profile_step(step_fn, state, batch) -> dict:
         top=[(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top])
 
 
-def phase_train(device):
+def dry_run_process():
+    """`launch.dryrun.lower_pair` of phase 17's model and batch on a (1, 1)
+    fake mesh, in a process of its own (a process has one default group):
+    its per-device cost and predicted memory, as JSON on its stdout."""
+    code = ("import json, sys; sys.path.insert(0, 'src')\n"
+            "from repro_torch.configs.registry import get_config\n"
+            "from repro_torch.launch import dryrun as D\n"
+            f"cost, mem, _ = D.lower_pair(get_config({TRAIN_ARCH!r}), 'train_4k', D.fake_mesh((1, 1)), "
+            f"batch={TRAIN_B}, seq={TRAIN_S})\n"
+            "print(json.dumps({'cost': cost, 'memory': mem}))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())     # a failed phase stops it too
+    return proc
+
+
+def train_on_mesh(cfg, state, batch, mesh, dry):
+    """Phase 17's mesh step: `loss_fn` of the current state under the
+    (1, 1) mesh (the vocab-sharded cross-entropy) against mesh=None's, and
+    one train step on the state placed on the mesh (views: the step updates
+    the state in place), its grad_norm against mesh=None's on the same
+    state, counted by `launch.op_cost.OpCost`; the dry run's (``dry``, the
+    `dry_run_process`) per-device dot FLOPs against that count, its
+    predicted peak beside the measured one. Returns (the state, report)."""
+    import torch
+
+    from repro_torch.launch import op_cost, train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import OptState, global_norm, value_and_grad
+    from repro_torch.parallel import sharding as SH
+
+    t_path = time.perf_counter()
+    specs = SH.param_specs(state.params)
+    placed = [SH.shard_tree(mesh, specs, t) for t in (state.params, state.opt.mu, state.opt.nu)]
+    with torch.no_grad():
+        plain_loss = float(M.loss_fn(state.params, cfg, batch))
+        mesh_loss = float(M.loss_fn(placed[0], cfg, batch, mesh=mesh))
+    step = T.build_train_step(cfg, mesh=mesh, lr=TRAIN_LR, clip=TRAIN_CLIP)
+    # the gradients' comparison without the atomics of the embedding's
+    # backward (a bf16 scatter-add sums in another order each run), as
+    # phase 17(b)'s; two plain runs give the spread that remains
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain_norms = []
+        for _ in range(2):
+            _, grads = value_and_grad(lambda p: M.loss_fn(p, cfg, batch), state.params)
+            plain_norms.append(float(global_norm(grads)))
+            del grads
+        plain_norm = plain_norms[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()                               # the mesh step's path starts here
+        t0 = time.perf_counter()
+        with op_cost.OpCost() as cost:
+            stepped, metrics = step(T.TrainState(placed[0], OptState(state.opt.step, placed[1], placed[2])),
+                                    batch)
+            step_loss, mesh_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check_no_lm_kernel("the mesh train step")         # ... and ends here
+    out, err = dry.communicate(timeout=600)
+    check(dry.returncode == 0, f"the dry run failed: {err[-2000:]}")
+    predicted = json.loads(out.strip().splitlines()[-1])
+    rel_loss = abs(mesh_loss - plain_loss) / abs(plain_loss)
+    rel_norm = abs(mesh_norm - plain_norm) / abs(plain_norm)
+    rel_flops = abs(predicted["cost"]["flops"] - cost.flops) / cost.flops
+    peak_pred = predicted["memory"]["total_hbm_bytes"]
+    check(rel_loss <= 1e-5, f"train on the mesh: loss {mesh_loss} vs mesh=None's {plain_loss} ({rel_loss:.3g})")
+    check(abs(step_loss - mesh_loss) <= 1e-5 * abs(mesh_loss),
+          f"train on the mesh: the step's loss {step_loss} is not its loss_fn's {mesh_loss}")
+    check(rel_norm <= 1e-4, f"train on the mesh: grad_norm {mesh_norm} vs mesh=None's {plain_norm} "
+          f"({rel_norm:.3g})")
+    check(math.isfinite(mesh_norm), "train on the mesh: grad_norm not finite")
+    check(rel_flops <= 0.01, f"the dry run's per-device dot FLOPs {predicted['cost']['flops']:.6g} vs the "
+          f"step's {cost.flops:.6g} ({rel_flops:.3g} relative)")
+    report = dict(plain_loss=plain_loss, mesh_loss=mesh_loss, loss_rel=rel_loss, plain_grad_norms=plain_norms,
+                  mesh_grad_norm=mesh_norm, grad_norm_rel=rel_norm, step_s=step_s, step_cost=cost.as_dict(),
+                  dry_run=predicted, dry_flops_rel=rel_flops, peak_bytes=peak, predicted_peak_bytes=peak_pred,
+                  wall_s=time.perf_counter() - t_path)
+    print(f"train {TRAIN_ARCH} on the (1, 1) mesh: loss {mesh_loss:.7g} (vocab-sharded CE) vs mesh=None "
+          f"{plain_loss:.7g} (rel {rel_loss:.3g}); one step: grad_norm {mesh_norm:.7g} vs mesh=None "
+          f"{plain_norm:.7g} (rel {rel_norm:.3g}; two mesh=None runs {fmt(plain_norms)}), "
+          f"{1e3 * step_s:.1f} ms under OpCost; dot FLOPs: step "
+          f"{cost.flops:.6g}, dry run {predicted['cost']['flops']:.6g} (rel {rel_flops:.3g}); peak "
+          f"memory: measured {peak / 2**30:.3f} GiB, dry run {peak_pred / 2**30:.3f} GiB (ratio "
+          f"{peak_pred / peak:.3f}); the mesh part {report['wall_s']:.2f} s", flush=True)
+    return T.TrainState(state.params, OptState(stepped.opt.step, state.opt.mu, state.opt.nu)), report
+
+
+def phase_train(device, mesh):
     """Phase 17: (a) Qwen2.5-3B at full width trains `TRAIN_STEPS` steps of
     `launch.train.build_train_step` on one batch, its step-0 loss held
-    against the flash kernel's forward; (b) the smoke variants of the other
+    against the flash kernel's forward, then one more step on the (1, 1)
+    ``mesh`` (`train_on_mesh`); (b) the smoke variants of the other
     trained families, remat on against off."""
     import torch
 
@@ -2338,7 +2545,8 @@ def phase_train(device):
     from repro_torch.models.layers import cross_entropy
     from repro_torch.optim.optimizers import value_and_grad
 
-    # (a) the full-width model
+    # (a) the full-width model; the dry run of its step traces beside it
+    dry = dry_run_process()
     cfg = get_config(TRAIN_ARCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2408,6 +2616,7 @@ def phase_train(device):
           f"{1e3 * prof['wall_s']:.1f} ms, device busy {1e3 * prof['busy_s']:.1f} ms "
           f"({100 * prof['busy_share']:.2f}%; matrix products {1e3 * prof['products_s']:.1f} ms; "
           f"{prof['launches']} launches; top {prof['top']})", flush=True)
+    state, report["mesh"] = train_on_mesh(cfg, state, batch, mesh, dry)
     del state, batch, step_fn
     torch.cuda.empty_cache()
 
@@ -2693,6 +2902,16 @@ def main() -> int:
     for k in all_kernels:
         k.load()
     build_s = time.perf_counter() - t0
+    phase_s = {}
+
+    def timed(label, fn, *fn_args, **kwargs):
+        """Run phase(s) ``label`` and print their wall time."""
+        t = time.perf_counter()
+        out = fn(*fn_args, **kwargs)
+        phase_s[label] = time.perf_counter() - t
+        print(f"phase {label}: {phase_s[label]:.2f} s", flush=True)
+        return out
+
     for path, log in built:
         print(f"build: {path.name} (all builds together: {build_s:.2f} s)", flush=True)
         for line in log.strip().splitlines():
@@ -2717,9 +2936,11 @@ def main() -> int:
     flash_sass = flash_tensor_core_sass(built[all_kernels.index(flash_kernel)][0])
     print("flash bf16 kernel (flash_fwd_kernel_sm90) SASS: "
           + ", ".join(f"hd {hd}: {n} HGMMA" for hd, n in sorted(flash_sass.items())), flush=True)
+    phase_s["1"] = time.perf_counter() - t0
+    print(f"phase 1: {phase_s['1']:.2f} s", flush=True)
 
     # phase 2: kernel vs plain version
-    cases = phase_kernel(device)
+    cases = timed("2", phase_kernel, device)
     for c in cases:
         print(f"{c['entry']}{tuple(c['shape'])} feasible={c['check_feasible']}: device "
               f"kernel {c['ms']:.6f} ms, plain {c['plain_ms']:.6f} ms, bound "
@@ -2728,55 +2949,60 @@ def main() -> int:
               f"max abs err {c['max_abs_err']:.3g}", flush=True)
 
     # phase 3: the allocator slice
-    solves, launches, iid_pgd = phase_slice(device)
-    profiled = phase_profile(device) if args.profile else None
+    solves, launches, iid_pgd = timed("3", phase_slice, device)
+    profiled = timed("3 (--profile)", phase_profile, device) if args.profile else None
 
     # phase 4: the flash kernel vs its plain version
-    flash_cases = phase_flash(device)
+    flash_cases = timed("4", phase_flash, device)
 
     # phases 5 and 6: the Gemma-2 slice (prefill, then ServeLoop)
-    lm, gemma_launches = phase_lm(device, *LM_PATHS[0])
+    # the (1, 1) mesh on the card (a one-process group), for phases 5, 8, 11 and 17
+    from repro_torch.launch.mesh import open_mesh
+
+    mesh = open_mesh()
+    lm, gemma_launches, gemma_mesh = timed("5-6", phase_lm_path, device, 0, mesh)
 
     # phase 7: the WKV6 kernel vs its plain version
-    wkv_cases = phase_wkv(device)
+    wkv_cases = timed("7", phase_wkv, device)
 
     # phases 8 and 9: the RWKV slice (prefill, then ServeLoop)
-    rwkv, rwkv_launches = phase_lm(device, *LM_PATHS[1])
+    rwkv, rwkv_launches, rwkv_mesh = timed("8-9", phase_lm_path, device, 1, mesh)
     main_wkv = next(c for c in wkv_cases if c["case"] == WKV_MAIN)
 
     # phase 10: the selective-scan kernel vs its plain version
-    scan_cases = phase_scan(device)
+    scan_cases = timed("10", phase_scan, device)
 
     # phases 11 and 12: the Jamba slice (prefill, then ServeLoop)
-    jamba, jamba_launches = phase_lm(device, *LM_PATHS[2])
+    jamba, jamba_launches, jamba_mesh = timed("11-12", phase_lm_path, device, 2, mesh)
     main_scan = next(c for c in scan_cases if c["case"] == SCAN_MAIN)
     paths = {"gemma2_2b": gemma_launches, "rwkv6_1_6b": rwkv_launches,
-             "jamba_1_5_large_398b": jamba_launches}
+             "jamba_1_5_large_398b": jamba_launches, "gemma2_2b (1, 1) mesh": gemma_mesh,
+             "rwkv6_1_6b (1, 1) mesh": rwkv_mesh, "jamba_1_5_large_398b (1, 1) mesh": jamba_mesh}
     by_path = lambda name: {arch: n[name] for arch, n in paths.items() if n[name]}
 
     # phase 13: the scenario families and the baselines
-    families, families_launches, classes = phase_families(device, iid_pgd)
+    families, families_launches, classes = timed("13", phase_families, device, iid_pgd)
 
     # phase 14: the exhaustive oracle through the objective kernel
-    oracle, oracle_launches = phase_oracle(device)
+    oracle, oracle_launches = timed("14", phase_oracle, device)
 
     # phase 15: the allocation service on the card
-    serving, serving_launches = phase_serving(device)
+    serving, serving_launches = timed("15", phase_serving, device)
 
     # phase 16: the FedSem closed loop (FL-trained SemCom jobs over the service)
-    fedsem, fedsem_launches = phase_fedsem(device)
+    fedsem, fedsem_launches = timed("16", phase_fedsem, device)
     # phase 17: LM training (Qwen2.5-3B at full width; the smoke families)
-    training = phase_train(device)
+    training = timed("17", phase_train, device, mesh)
 
     # phase 18: federated LM fine-tuning over the allocator
-    fedlm, fedlm_launches = phase_federated_lm(device)
+    fedlm, fedlm_launches = timed("18", phase_federated_lm, device)
 
     # phase 19: Gemma-2 9B, StarCoder2-3B, HuBERT X-Large and Pixtral-12B
-    models, model_launches = phase_models(device)
+    models, model_launches = timed("19", phase_models, device)
     paths.update(model_launches)
 
     # phase 20: Arctic-480B and DeepSeek-V3 (MoE and MLA) at their published widths
-    moe_models, moe_launches = phase_moe(device)
+    moe_models, moe_launches = timed("20", phase_moe, device)
     paths.update(moe_launches)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
                          "exhaustive": oracle_launches, "serving": serving_launches,
@@ -2853,8 +3079,11 @@ def main() -> int:
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
                  oracle=oracle, serving=serving, fedsem=fedsem, training=training,
                  federated_lm=fedlm, models=models, moe_models=moe_models, record=record,
-                 card=smi, script_s=time.perf_counter() - t_script),
+                 card=smi, phase_s=phase_s, script_s=time.perf_counter() - t_script),
             indent=1, default=str))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(f"chip_smoke: all 20 phases passed in {time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps(record))
     print(smi[0])

@@ -108,13 +108,24 @@ def lm_tree_from_numpy(tree: dict, cfg, device="cuda", dtype=None) -> dict:
     return {k: convert(tree[k]) for k in keys if k in tree}
 
 
-def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
+def lm_params_from_numpy(tree: dict, cfg, device="cuda", mesh=None):
     """The port's `models.model.LM` from the reference's parameter pytree:
     layer ``offset + period * pattern_len + j`` takes period ``period`` of
-    block ``b{j}`` (the `LM` over `lm_tree_from_numpy`'s tree)."""
+    block ``b{j}`` (the `LM` over `lm_tree_from_numpy`'s tree). With
+    ``mesh``, the tree of DTensors placed by
+    `parallel.sharding.param_specs`, each rank's block a view of the
+    converted leaf."""
     from .models.model import LM
 
+    if mesh is not None:
+        return _placed(lm_tree_from_numpy(tree, cfg, device), mesh)
     return LM(cfg, lm_tree_from_numpy(tree, cfg, device))
+
+
+def _placed(tree, mesh):
+    from .parallel import sharding as SH
+
+    return SH.shard_tree(mesh, SH.param_specs(tree), tree)
 
 
 def lm_params_to_numpy(params) -> dict:
@@ -134,15 +145,22 @@ def lm_params_to_numpy(params) -> dict:
     return arr(tree)
 
 
-def opt_state_from_numpy(state, cfg, device="cuda"):
+def opt_state_from_numpy(state, cfg, device="cuda", mesh=None):
     """The port's `optim.OptState` from the reference's (``step``, and the
     moments ``mu``/``nu`` laid out like its parameter pytree, as numpy
     arrays; None for an optimizer without them): the step as an int32 host
     scalar (as the port's ``init`` makes it), the moments as float32 tree
-    views on ``device`` (`lm_tree_from_numpy`)."""
+    views on ``device`` (`lm_tree_from_numpy`); with ``mesh``, DTensors
+    placed as the parameters are."""
     from .optim.optimizers import OptState
 
     dev = resolve_device(device)
-    moments = lambda t: None if t is None else lm_tree_from_numpy(t, cfg, dev, torch.float32)
+
+    def moments(t):
+        if t is None:
+            return None
+        t = lm_tree_from_numpy(t, cfg, dev, torch.float32)
+        return t if mesh is None else _placed(t, mesh)
+
     return OptState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
                     mu=moments(state.mu), nu=moments(state.nu))

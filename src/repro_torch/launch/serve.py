@@ -7,9 +7,18 @@ Counterpart of `repro.launch.serve`:
       --requests 8 --max-new 16 [--device cpu]
 
 Prompts are ingested through the decode path, position by position, and
-tokens are chosen greedily (argmax), as in the reference. The loop advances
-one global position for all slots, and a refilled slot inherits the old
-slot's KV cache entries (the reference's semantics, ported as they are).
+tokens are chosen greedily (argmax), as in the reference, or drawn from the
+softmax by the Gumbel maximum (`parallel.collectives.pick`), as the
+reference's `jax.random.categorical` draws. The loop advances one global
+position for all slots, and a refilled slot inherits the old slot's KV
+cache entries (the reference's semantics, ported as they are).
+
+With ``mesh`` (`launch.mesh`) the cache is placed by
+`parallel.sharding.cache_specs` (each rank allocates its block only) and
+the next tokens are picked from the vocab-sharded logits without
+gathering them: each shard's best (and, sampling, its Gumbel-perturbed
+best) is compared across ``model``, and the data shards' rows across the
+data axes.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import smoke_variant
+from repro_torch.parallel import collectives as C
 
 
 class ServeLoop:
@@ -28,13 +38,23 @@ class ServeLoop:
     queued requests; every slot advances one token per step."""
 
     def __init__(self, cfg, params: M.LM, batch_slots: int, max_len: int, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet: ROADMAP.md §1, item 11b")
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.mesh = cfg, params, mesh
         self.max_len = max_len
-        self.device = params.device
-        self.cache = M.init_cache(cfg, batch_slots, max_len, self.device)
+        tree = params.tree if isinstance(params, M.LM) else params
+        self.device = tree["embed"].device
         self.slots = batch_slots
+        self.cache = M.init_cache(cfg, batch_slots, max_len, self.device, mesh=mesh)
+
+    def step(self, token, pos: int):
+        """One decode step of the (slots, 1) ``token`` at ``pos``: the
+        logits (slots, 1, V), a DTensor under a mesh."""
+        return M.decode_step(self.params, self.cfg, token, pos, self.cache, mesh=self.mesh)[0]
+
+    def pick(self, logits, greedy=True, generator=None) -> list[int]:
+        """Each slot's next token: the argmax of its last logits, or with
+        ``greedy=False`` a draw from their softmax (``generator``), by
+        `parallel.collectives.pick` with or without a mesh."""
+        return C.pick(logits, greedy, generator)
 
     def run(self, requests: list[list[int]], max_new: int, greedy=True, generator=None):
         """requests: token lists. Returns (dict req_idx -> generated tokens,
@@ -66,14 +86,7 @@ class ServeLoop:
                     feed.append(tok[s])
             t0 = time.perf_counter()
             token = torch.tensor(feed, dtype=torch.long, device=self.device)[:, None]
-            logits, self.cache = M.decode_step(self.params, self.cfg, token, pos, self.cache)
-            last = logits[:, 0, :]
-            if greedy:
-                nxt = torch.argmax(last, dim=-1)
-            else:
-                probs = torch.softmax(last.float(), dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            tok = nxt.tolist()               # waits for the step on the device
+            tok = self.pick(self.step(token, pos), greedy, generator)   # waits for the step
             stats["step_times"].append(time.perf_counter() - t0)
             stats["steps"] += 1
             pos += 1

@@ -17,6 +17,14 @@ float32 temporaries of the update are one leaf's. The clipped gradient is
 float32, as the reference's is (a bfloat16 gradient times its float32
 scale promotes in JAX).
 
+Under a mesh (`launch.mesh`) the state's leaves are DTensors placed by
+`parallel.sharding.param_specs` (`init_state(mesh=)`,
+`bridge.lm_params_from_numpy(mesh=)`): each rank's gradients are its data
+shard's share, summed over the data axes; the global norm is reduced over
+the whole mesh (a sharded leaf's squares over its shards, a replicated
+leaf's counted once); the AdamW update runs on each rank's local tensors,
+a leaf at a time.
+
 Run as a script for a short training run (on the card unless ``--device
 cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b --smoke --steps 50
@@ -34,6 +42,7 @@ from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig, smoke_variant
 from ..optim.optimizers import OptState, adamw, clip_scale, global_norm, value_and_grad
+from ..parallel import sharding as SH
 
 
 class TrainState(NamedTuple):
@@ -44,21 +53,28 @@ class TrainState(NamedTuple):
 def build_train_step(cfg: ModelConfig, mesh=None, lr: float = 3e-4, clip: float = 1.0,
                      use_kernel: bool = False):
     """The train step of ``cfg``. ``use_kernel`` is `loss_fn`'s: the kernels
-    are forward only and raise under autograd, so only False trains. A
-    mesh raises (sharded training is not ported: ROADMAP.md §1, item 11b)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes (sharded training) are not ported yet: ROADMAP.md §1, item 11b")
+    are forward only and raise under autograd, so only False trains. With
+    ``mesh`` the state's leaves are DTensors on it (module docstring)."""
     _, opt_update = adamw(lr, weight_decay=0.01)
 
     def train_step(state: TrainState, batch):
         loss, grads = value_and_grad(
-            lambda p: M.loss_fn(p, cfg, batch, use_kernel=use_kernel), state.params)
-        gnorm = global_norm(grads)
+            lambda p: M.loss_fn(p, cfg, batch, mesh=mesh, use_kernel=use_kernel), state.params)
+        if mesh is None:
+            gnorm = global_norm(grads)
+            local = lambda t: t
+        else:
+            grads = tree_leaves(grads)
+            for i, p in enumerate(tree_leaves(state.params)):   # sum the data shares, a leaf at a time
+                grads[i] = grads[i].redistribute(p.device_mesh, p.placements)
+            gnorm = SH.global_norm(grads)
+            local = lambda t: t.to_local()
         scale = clip_scale(gnorm, clip)
         opt = state.opt
         step = opt.step
         with torch.no_grad():
-            for p, m, v, g in zip(*map(tree_leaves, (state.params, opt.mu, opt.nu, grads)), strict=True):
+            for p, m, v, g in zip(*(map(local, tree_leaves(t)) for t in (state.params, opt.mu, opt.nu, grads)),
+                                  strict=True):
                 new_p, new = opt_update(g.float() * scale, OptState(step, m, v), p)
                 p.copy_(new_p)
                 m.copy_(new.mu)
@@ -69,10 +85,15 @@ def build_train_step(cfg: ModelConfig, mesh=None, lr: float = 3e-4, clip: float 
     return train_step
 
 
-def init_state(cfg: ModelConfig, generator: torch.Generator, lr: float = 3e-4) -> TrainState:
+def init_state(cfg: ModelConfig, generator: torch.Generator, lr: float = 3e-4,
+               mesh=None) -> TrainState:
     """Random parameters of the reference's law (`models.model.init_params`)
-    on the generator's device, as a tree, and AdamW's zero state."""
+    on the generator's device, as a tree, and AdamW's zero state; with
+    ``mesh`` DTensors placed by `parallel.sharding.param_specs` (each
+    rank's block a view of the tree it drew)."""
     params = M.init_params(cfg, generator).tree
+    if mesh is not None:
+        params = SH.shard_tree(mesh, SH.param_specs(params), params)
     opt_init, _ = adamw(lr, weight_decay=0.01)
     return TrainState(params, opt_init(params))
 

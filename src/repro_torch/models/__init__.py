@@ -6,5 +6,5 @@ Counterpart of `repro.models`. Ported: the ``attn``/``attn_local`` blocks
 bias; DeepSeek's MLA), the ``rwkv`` blocks (RWKV-6 time and channel mix),
 the ``mamba`` blocks (the selective-state-space block of Jamba), dense and
 routed MoE FFNs, the stub frontends, prefill, cached decode and the loss.
-Meshes raise `NotImplementedError` (ROADMAP.md §1, item 11b).
+Every entry point also runs on a mesh (`models.model`'s docstring).
 """

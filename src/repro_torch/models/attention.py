@@ -10,6 +10,14 @@ position tags. DeepSeek's MLA: low-rank q and kv projections with a
 decoupled RoPE head; its prefill builds per-head K and V from the latent and
 takes the chunked plain attention (as the reference's does), its decode
 caches only the latent (c_kv, k_rope) and scores in the absorbed form.
+
+Under a mesh (``par``, `parallel.collectives.Par`) the weights are each
+rank's head shard over ``model`` (`parallel.sharding`): the replicated
+input enters through `collectives.copy`, q/k/v and the attention (the
+kernel included, once per shard and layer) cover the local heads, and the
+partial ``wo`` products are summed by `collectives.reduce`. A decode
+cache holds the local kv heads (GQA) or its slice of the latent (MLA,
+gathered for the step's scores).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.kernel import scale_of
+from repro_torch.parallel import collectives as C
 
 from .layers import apply_rope, constant, dense_init, rms_norm, softcap
 
@@ -156,7 +165,22 @@ def _out(o, wo):
     return o.reshape(*o.shape[:-2], h * kd) @ wo.reshape(h * kd, d)
 
 
-def _project_qkv(p, cfg, x, positions):
+def _heads_sharded(p, cfg, par) -> bool:
+    """Whether ``p`` holds this rank's head shard (else every head). The q
+    and kv heads are split alike or not at all: a q shard must see its own
+    kv heads (`launch.specs.mesh_adapt` makes the head counts divide)."""
+    if par is None:
+        return False
+    q = par.sharded(p["wq"].shape[1], cfg.n_heads)
+    if q != par.sharded(p["wk"].shape[1], cfg.n_kv_heads):
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} q and {cfg.n_kv_heads} kv heads do not split "
+                         f"alike over a model axis of {par.M}; adapt the config (launch.specs.mesh_adapt)")
+    return q
+
+
+def _project_qkv(p, cfg, x, positions, par=None):
+    if _heads_sharded(p, cfg, par):
+        x = C.copy(x, par)
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -165,18 +189,26 @@ def _project_qkv(p, cfg, x, positions):
     return q, k, v
 
 
-def gqa_forward(p, cfg, x, positions, *, window=None, use_kernel=False):
+def _out_reduced(p, cfg, o, par):
+    """The output projection; under a head-sharded mesh its partial sums
+    are reduced over ``model``."""
+    out = _out(o, p["wo"])
+    return C.reduce(out, par) if _heads_sharded(p, cfg, par) else out
+
+
+def gqa_forward(p, cfg, x, positions, *, window=None, use_kernel=False, par=None):
     """Full-sequence attention (prefill) at positions 0..S-1. ``use_kernel``
     ("auto", True or False) picks the CUDA kernel or the chunked plain
-    version (at the config's chunk sizes) in `kernels.flash_attention.ops`."""
+    version (at the config's chunk sizes) in `kernels.flash_attention.ops`.
+    Under a mesh ``p`` is this rank's head shard (module docstring)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, par)
     out = fa_ops.flash_attention(
         q, k, v, causal=cfg.causal, window=window, cap=cfg.attn_softcap,
         use_kernel=use_kernel, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
     )
-    return _out(out, p["wo"])
+    return _out_reduced(p, cfg, out, par)
 
 
 def init_kv_cache(cfg, batch, length, window, dtype, device):
@@ -189,13 +221,13 @@ def init_kv_cache(cfg, batch, length, window, dtype, device):
     }
 
 
-def gqa_decode(p, cfg, x, pos: int, cache, *, window=None):
+def gqa_decode(p, cfg, x, pos: int, cache, *, window=None, par=None):
     """One-token decode. x: (B,1,d); pos: the position of every row (one for
     the whole batch, as in the reference). Writes slot pos % size of the
     ring cache in place (the reference returns an updated copy) and returns
     (out, cache)."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, par)
     size = cache["k"].shape[1]
     slot = pos % size
     cache["k"][:, slot] = k[:, 0]
@@ -203,7 +235,7 @@ def gqa_decode(p, cfg, x, pos: int, cache, *, window=None):
     cache["pos_tag"][slot] = pos
     kc, vc, tags = cache["k"], cache["v"], cache["pos_tag"]
     B, _, KV, hd = kc.shape
-    H = cfg.n_heads
+    H = q.shape[2]                          # the local heads under a mesh
     G = H // KV
     qh = q.reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qh, kc.float()) / float(np.sqrt(np.float32(hd)))
@@ -216,16 +248,28 @@ def gqa_decode(p, cfg, x, pos: int, cache, *, window=None):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", w, vc.float())
     out = out.reshape(B, 1, H, hd).to(x.dtype)
-    return _out(out, p["wo"]), cache
+    return _out_reduced(p, cfg, out, par), cache
 
 
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V3)
 # ---------------------------------------------------------------------------
 
-def _mla_q(p, cfg, x, positions):
-    """(q_nope (B,S,H,hd), q_rope (B,S,H,rope)) from the normed q latent."""
-    ql = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+def _mla_heads_sharded(p, cfg, par) -> bool:
+    return par is not None and par.sharded(p["w_uq"].shape[1], cfg.n_heads)
+
+
+def _mla_q(p, cfg, x, positions, par=None):
+    """(q_nope (B,S,H,hd), q_rope (B,S,H,rope)) from the normed q latent;
+    under a mesh the latent's column shards are gathered for its norm, and
+    H is the local heads."""
+    if par is not None and par.sharded(p["w_dq"].shape[1], cfg.q_lora_rank):
+        ql = C.gather(C.copy(x, par) @ p["w_dq"], par)
+    else:
+        ql = x @ p["w_dq"]
+    ql = rms_norm(ql, p["q_norm"], cfg.norm_eps)
+    if _mla_heads_sharded(p, cfg, par):
+        ql = C.copy(ql, par)
     q = _proj(ql, p["w_uq"])
     q_nope, q_rope = q[..., : cfg.hd], q[..., cfg.hd:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -240,16 +284,25 @@ def _mla_latent(p, cfg, x, positions):
     return c_kv, k_rope[:, :, 0]
 
 
-def mla_forward(p, cfg, x, positions):
+def _mla_out(p, cfg, o, par):
+    out = _out(o, p["wo"])
+    return C.reduce(out, par) if _mla_heads_sharded(p, cfg, par) else out
+
+
+def mla_forward(p, cfg, x, positions, par=None):
     """Prefill at positions 0..S-1: per-head K and V built from the latent,
     q and k of width hd + rope, v zero-padded to that width for the chunked
     attention (at the config's chunks) and sliced back to hd. It takes the
-    plain chunked attention, as the reference's does: no kernel."""
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    plain chunked attention, as the reference's does: no kernel. Under a
+    mesh the heads are this rank's shard."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, par)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    if _mla_heads_sharded(p, cfg, par):     # the latent feeds this rank's heads
+        c_kv, k_rope = C.copy(c_kv, par), C.copy(k_rope, par)
     k_nope = _proj(c_kv, p["w_uk"])
     v = _proj(c_kv, p["w_uv"])
-    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], cfg.n_heads, cfg.qk_rope_dim)
+    H = q_nope.shape[2]
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, cfg.qk_rope_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     v_pad = F.pad(v, (0, cfg.qk_rope_dim))
@@ -257,7 +310,7 @@ def mla_forward(p, cfg, x, positions):
         q, k, v_pad, q_positions=positions, kv_positions=positions, causal=True,
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
     )[..., : cfg.hd]
-    return _out(out, p["wo"])
+    return _mla_out(p, cfg, out, par)
 
 
 def init_mla_cache(cfg, batch, length, dtype, device):
@@ -270,20 +323,23 @@ def init_mla_cache(cfg, batch, length, dtype, device):
     }
 
 
-def mla_decode(p, cfg, x, pos: int, cache):
+def mla_decode(p, cfg, x, pos: int, cache, par=None):
     """One-token decode in the absorbed form: scores and the value sum in
     the latent space, in float32 (no per-head K or V), scaled by
     1/sqrt(hd + rope). Writes slot pos of the cache in place (the last slot
     past its end, as the reference's clamped update does) and returns
-    (out, cache)."""
+    (out, cache). Under a mesh the cache holds this rank's slice of the
+    latent (`parallel.sharding.cache_specs`), gathered for the scores."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)           # (B,1,H,hd), (B,1,H,rope)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, par)      # (B,1,H,hd), (B,1,H,rope)
     c_kv_t, k_rope_t = _mla_latent(p, cfg, x, positions)
     slot = min(pos, cache["c_kv"].shape[1] - 1)
-    cache["c_kv"][:, slot] = c_kv_t[:, 0]
+    latent_sharded = par is not None and par.sharded(cache["c_kv"].shape[-1], cfg.kv_lora_rank)
+    cache["c_kv"][:, slot] = C.split(c_kv_t[:, 0], par) if latent_sharded else c_kv_t[:, 0]
     cache["k_rope"][:, slot] = k_rope_t[:, 0]
     cache["pos_tag"][slot] = pos
-    c_kv, k_rope, tags = cache["c_kv"].float(), cache["k_rope"].float(), cache["pos_tag"]
+    c_kv = C.gather(cache["c_kv"], par) if latent_sharded else cache["c_kv"]
+    c_kv, k_rope, tags = c_kv.float(), cache["k_rope"].float(), cache["pos_tag"]
     q_eff = torch.einsum("bshk,rhk->bshr", q_nope.float(), p["w_uk"].float())   # (B,1,H,r)
     s = torch.einsum("bshr,btr->bhst", q_eff, c_kv)
     s = s + torch.einsum("bshk,btk->bhst", q_rope.float(), k_rope)
@@ -293,4 +349,4 @@ def mla_decode(p, cfg, x, pos: int, cache):
     w = torch.softmax(s, dim=-1)
     lat = torch.einsum("bhst,btr->bshr", w, c_kv)                              # (B,1,H,r)
     out = torch.einsum("bshr,rhk->bshk", lat, p["w_uv"].float()).to(x.dtype)
-    return _out(out, p["wo"]), cache
+    return _mla_out(p, cfg, out, par), cache

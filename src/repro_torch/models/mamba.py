@@ -18,6 +18,13 @@ in float32, where the reference adds it after its scan: both are
 tensor of every step's state is never built. With ``cfg.ssm_io_bf16`` x, dt,
 B and C reach the scan rounded to bf16, as the reference streams them (the
 math stays float32, and y keeps the model's type).
+
+Under a mesh (``par``) each rank holds its ``model`` slice of d_inner
+(`parallel.sharding`): ``in_proj``'s column block of [x, z] is gathered and
+each rank keeps its slices of x and z, the conv, the scan (the kernel
+included, once per shard and layer) and the state cover the local
+channels, ``x_proj``'s row-sharded partial sums (dt, B, C) are reduced
+before the scan, and ``out_proj``'s partial sums after it.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.parallel import collectives as C
 
 from .layers import constant, dense_init
 
@@ -87,7 +95,7 @@ def _causal_conv(x, w, b, carry=None):
     return out + b, xp[:, -(K - 1):]
 
 
-def _ssm_inputs(p, cfg, x):
+def _ssm_inputs(p, cfg, x, par=None):
     """The pre-scan projections of the convolved x (B, S, di). Returns
     (dt (B, S, di) float32, B (B, S, N), C (B, S, N)), B and C as column
     views of ``x_proj``'s output in the model's type. (The reference takes
@@ -95,11 +103,14 @@ def _ssm_inputs(p, cfg, x):
     N = cfg.ssm_state
     R = _dt_rank(cfg)
     proj = x @ p["x_proj"]
+    if par is not None and par.sharded(x.shape[-1], cfg.ssm_expand * cfg.d_model):
+        # row-sharded: partial sums over model, then used per rank's channels
+        proj = C.copy(C.reduce(proj, par), par)
     dt = F.softplus((proj[..., :R] @ p["dt_proj"]).float() + p["dt_bias"])
     return dt, proj[..., R:R + N], proj[..., R + N:]
 
 
-def mamba_forward(p, cfg, x_in, state=None, use_kernel="auto"):
+def mamba_forward(p, cfg, x_in, state=None, use_kernel="auto", par=None):
     """x_in: (B, S, d); state: {"conv": (B, K-1, di), "h": (B, di, N)}
     carried from earlier tokens, or None for a fresh sequence. Returns
     (out, state).
@@ -111,12 +122,17 @@ def mamba_forward(p, cfg, x_in, state=None, use_kernel="auto"):
     with a carried state.
     """
     di = cfg.ssm_expand * cfg.d_model
-    xz = x_in @ p["in_proj"]
-    x, z = xz[..., :di], xz[..., di:]
+    sharded = par is not None and par.sharded(p["in_proj"].shape[1], 2 * di)
+    if sharded:
+        xz = C.gather(C.copy(x_in, par) @ p["in_proj"], par)
+        x, z = C.split(xz[..., :di], par), C.split(xz[..., di:], par)
+    else:
+        xz = x_in @ p["in_proj"]
+        x, z = xz[..., :di], xz[..., di:]
     x, conv_carry = _causal_conv(x, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     x = F.silu(x)
-    dt, Bm, Cm = _ssm_inputs(p, cfg, x)
+    dt, Bm, Cm = _ssm_inputs(p, cfg, x, par)
     xs = x
     if cfg.ssm_io_bf16:
         # x keeps the model's type (y is cast to it, as the reference casts
@@ -128,6 +144,8 @@ def mamba_forward(p, cfg, x_in, state=None, use_kernel="auto"):
     y, h = scan_ops.mamba_scan(xs, dt, Bm, Cm, A, p["D"], None if state is None else state["h"],
                                use_kernel=use_kernel)
     out = (y * F.silu(z)) @ p["out_proj"]
+    if sharded:
+        out = C.reduce(out, par)
     if state is None:
         return out, None
     return out, {"conv": conv_carry, "h": h}

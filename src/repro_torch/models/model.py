@@ -36,9 +36,27 @@ A layer's FFN is dense or MoE (`moe.moe_ffn`), as the reference's
 other layer of its period of 8. MoE layers return the router's
 load-balance term, which `forward` sums (``aux``) and `loss_fn` adds as
 0.01 * aux / n_layers. Attention is GQA, or DeepSeek's MLA with
-``use_mla``. Meshes (sharded models, expert parallelism) and the configs
-the registry lists in ``NOT_PORTED`` raise `NotImplementedError`
-(ROADMAP.md §1) before anything is allocated.
+``use_mla``. The configs the registry lists in ``NOT_PORTED`` raise
+`NotImplementedError` (ROADMAP.md §1) before anything is allocated.
+
+Every entry point takes ``mesh``, a `DeviceMesh` with the reference's axis
+names (`launch.mesh`). The parameters are then DTensors placed by
+`parallel.sharding.param_specs` (a plain tensor raises), the batch global
+tensors or DTensors sharded on the data axes
+(`parallel.sharding.batch_specs`), the decode cache DTensors placed by
+`parallel.sharding.cache_specs`. Each rank computes on its local tensors:
+its data shard of the batch (the whole batch where the data axes do not
+divide it), its ``model`` shard of every weight (a layer's FSDP shards on
+the data axes are gathered when the layer runs, and again by remat in the
+backward pass: `_local_lm`), crossing ranks only through
+`parallel.collectives` (module docstring there): the residual stream is
+replicated over ``model`` between blocks (what the reference's
+``_constrain_residual`` asks of GSPMD), the embedding and the head are
+vocab-sharded and the head's logits stay so (the reference's ``_head``
+constraint): `forward`, `prefill` and `decode_step` return them as a
+DTensor, and `loss_fn` takes the vocab-sharded cross-entropy
+(`_sharded_cross_entropy`) where the model axis divides the vocab, as the
+reference does. Each kernel launches once per shard and layer.
 """
 from __future__ import annotations
 
@@ -47,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.registry import NOT_PORTED, canonical
 from ..core.types import tree_map
+from ..parallel import collectives as C
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
@@ -64,10 +83,16 @@ class Block:
     ``post_ffn_ln``; a ``mamba`` layer has ``mamba`` {in_proj, conv_w, ...}
     in place of ``attn``; an ``rwkv`` layer has ``ln``, ``rwkv`` (time and
     channel mix), optional ``post_ln`` and ``ffn_ln``. ``is_moe``: whether
-    ``ffn`` is routed. Its tensors are views of the tree's stacked leaves."""
+    ``ffn`` is routed. Its tensors are views of the tree's stacked leaves.
+    ``gathers``: under a mesh, {leaf path: (mesh dims, dim)} of the leaves
+    whose local tensors are FSDP shards, gathered when the block runs
+    (`_gathered`)."""
+
+    gathers: dict = {}
 
     def __init__(self, kind: str, is_moe: bool, p: dict):
         self.kind, self.is_moe = kind, is_moe
+        self.parts = p
         for name, value in p.items():
             setattr(self, name, value)
 
@@ -219,14 +244,15 @@ def _block_window(cfg, kind):
     return cfg.sliding_window if kind == "attn_local" else None
 
 
-def _ffn(blk: Block, cfg, x):
+def _ffn(blk: Block, cfg, x, par=None, whole=False):
     """The second residual of a non-``rwkv`` block: (x, the MoE's aux term,
-    0.0 for a dense FFN)."""
+    0.0 for a dense FFN). ``whole``: x is the whole batch on every data
+    rank (a mesh whose data axes do not divide it)."""
     h = rms_norm(x, blk.ffn_ln, cfg.norm_eps)
     if blk.is_moe:
-        out, aux = moe_mod.moe_ffn(blk.ffn, cfg, h)
+        out, aux = moe_mod.moe_ffn(blk.ffn, cfg, h, mesh=par, tokens_whole=whole)
     else:
-        out, aux = moe_mod.dense_ffn(blk.ffn, cfg, h), 0.0
+        out, aux = moe_mod.dense_ffn(blk.ffn, cfg, h, par), 0.0
     if cfg.post_norm:
         out = rms_norm(out, blk.post_ffn_ln, cfg.norm_eps)
     return x + out, aux
@@ -236,38 +262,55 @@ def _post(blk: Block, cfg, inner):
     return rms_norm(inner, blk.post_ln, cfg.norm_eps) if cfg.post_norm else inner
 
 
-def _channel_mix(blk: Block, cfg, x, state):
+def _channel_mix(blk: Block, cfg, x, state, par=None):
     """The second residual of an ``rwkv`` block; returns (x, channel state)."""
-    out, c = rwk.channel_mix(blk.rwkv, cfg, rms_norm(x, blk.ffn_ln, cfg.norm_eps), state)
+    out, c = rwk.channel_mix(blk.rwkv, cfg, rms_norm(x, blk.ffn_ln, cfg.norm_eps), state, par)
     return x + out, c
 
 
-def _mixer(blk: Block, cfg, x, positions, use_kernel):
+def _mixer(blk: Block, cfg, x, positions, use_kernel, par=None):
     """The first residual of a fresh sequence's ``attn``/``mamba`` layer:
     x + its attention or Mamba block (post-normed where the config says)."""
     h = rms_norm(x, blk.ln, cfg.norm_eps)
     if blk.kind == "mamba":
         # a fresh sequence from the zero state, its final state discarded
-        inner, _ = mam.mamba_forward(blk.mamba, cfg, h, None, use_kernel=use_kernel)
+        inner, _ = mam.mamba_forward(blk.mamba, cfg, h, None, use_kernel=use_kernel, par=par)
     elif cfg.use_mla:           # the plain chunked attention, as the reference's MLA
-        inner = attn.mla_forward(blk.attn, cfg, h, positions)
+        inner = attn.mla_forward(blk.attn, cfg, h, positions, par=par)
     else:
         inner = attn.gqa_forward(
             blk.attn, cfg, h, positions,
-            window=_block_window(cfg, blk.kind), use_kernel=use_kernel,
+            window=_block_window(cfg, blk.kind), use_kernel=use_kernel, par=par,
         )
     return x + _post(blk, cfg, inner)
 
 
-def _apply_block(blk: Block, cfg, x, positions, use_kernel):
+def _gathered(blk: Block, par) -> Block:
+    """``blk`` with its FSDP leaves (``blk.gathers``) gathered over their
+    data axes: all-gather forward, reduce-scatter backward, so each data
+    rank's shard receives the whole batch's gradient."""
+    if not blk.gathers:
+        return blk
+    p = dict(blk.parts)
+    for path, (dims, dim) in blk.gathers.items():
+        node = p
+        for k in path[:-1]:
+            node[k] = dict(node[k])
+            node = node[k]
+        node[path[-1]] = C.gather_data(node[path[-1]], par, dim, dims)
+    return Block(blk.kind, blk.is_moe, p)
+
+
+def _apply_block(blk: Block, cfg, x, positions, use_kernel, par=None, whole=False):
     """One layer of a fresh sequence: (x, its aux term)."""
+    blk = _gathered(blk, par)
     if blk.kind == "rwkv":
         # a fresh sequence: both mixes start from the zero state, and their
         # final states are discarded, as in the reference's forward
         h = rms_norm(x, blk.ln, cfg.norm_eps)
-        inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel)
-        return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None)[0], 0.0
-    return _ffn(blk, cfg, _mixer(blk, cfg, x, positions, use_kernel))
+        inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel, par=par)
+        return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None, par)[0], 0.0
+    return _ffn(blk, cfg, _mixer(blk, cfg, x, positions, use_kernel, par), par, whole)
 
 
 def _project(x, w):
@@ -277,33 +320,61 @@ def _project(x, w):
     return x.to(dt) @ w.to(dt)
 
 
-def _embed(params: LM, cfg, batch):
+def _lookup(embed, tokens, cfg, par=None):
+    """Token embeddings; a vocab-sharded table (under a mesh) looks up its
+    own rows, zero elsewhere, and the shards are summed over ``model``."""
+    V = embed.shape[0]
+    if par is None or not par.sharded(V, cfg.vocab):
+        return embed[tokens]
+    idx = tokens - par.m * V
+    ok = (idx >= 0) & (idx < V)
+    return C.reduce(torch.where(ok[..., None], embed[torch.where(ok, idx, 0)], 0), par)
+
+
+def _frontend(params: LM, cfg, embeds, par=None):
+    """``embeds`` projected through ``frontend_proj``, whose d columns are
+    gathered where a mesh shards them."""
+    w = params.frontend_proj
+    if par is not None and par.sharded(w.shape[1], cfg.d_model):
+        return C.gather(_project(embeds, w), par)
+    return _project(embeds, w)
+
+
+def _embed(params: LM, cfg, batch, par=None):
     if cfg.frontend == "audio":
-        x = _project(batch["frame_embeds"], params.frontend_proj).to(dtype_of(cfg))
+        x = _frontend(params, cfg, batch["frame_embeds"], par).to(dtype_of(cfg))
     else:
-        x = params.embed[batch["tokens"]]
+        x = _lookup(params.embed, batch["tokens"], cfg, par)
         if cfg.frontend == "vision":
-            pe = _project(batch["patch_embeds"], params.frontend_proj)
+            pe = _frontend(params, cfg, batch["patch_embeds"], par)
             x = torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
 
-def _head(params: LM, cfg, x):
+def _out_dim(cfg) -> int:
+    return cfg.n_classes if cfg.arch_type == "audio" else cfg.vocab
+
+
+def _head(params: LM, cfg, x, par=None):
+    """Logits; under a mesh a vocab-sharded head gives this rank's vocab
+    shard of them (the reference's vocab-sharded logits)."""
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.head
+    if par is not None and par.sharded(w.shape[1], _out_dim(cfg)):
+        x = C.copy(x, par)
     logits = x @ w
     if cfg.final_softcap:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("meshes (sharded models) are not ported yet: ROADMAP.md §1, item 11b")
+def _dp_size(mesh) -> int:
+    """The product of the mesh's data axes (('pod', 'data'))."""
+    return C.as_par(mesh).D
 
 
-def _run_layers(params: LM, cfg, x, positions, use_kernel, remat):
+def _run_layers(params: LM, cfg, x, positions, use_kernel, remat, par=None, whole=False):
     """The layers, one period (``pattern_len`` layers) at a time: (x, the
     sum of the layers' aux terms). With ``remat`` under grad mode each
     period is recomputed in the backward pass (the reference's
@@ -316,7 +387,7 @@ def _run_layers(params: LM, cfg, x, positions, use_kernel, remat):
         def period_fn(x, blocks=layers[i:i + period]):
             aux = 0.0
             for blk in blocks:
-                x, a = _apply_block(blk, cfg, x, positions, use_kernel)
+                x, a = _apply_block(blk, cfg, x, positions, use_kernel, par, whole)
                 aux = aux + a
             return x, aux
 
@@ -326,6 +397,120 @@ def _run_layers(params: LM, cfg, x, positions, use_kernel, remat):
             x, aux = period_fn(x)
         total = total + aux
     return x, total
+
+
+# ---------------------------------------------------------------------------
+# the mesh path's local tensors
+# ---------------------------------------------------------------------------
+
+def _is_2d_expert_stack(path, x) -> bool:
+    return "ffn" in path and path[-1] in ("w_gate", "w_up", "w_down") and x.ndim == 4
+
+
+def _compute_local(x, par, keep_data=False):
+    """A parameter DTensor as this rank's compute tensor: its shards on the
+    data axes (FSDP storage) gathered first unless ``keep_data``, then its
+    local tensor, whose gradient is this data rank's share (Partial over
+    the replicated data axes) and, on the data axes that shard it, the
+    whole batch's gradient of this shard."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = list(x.placements)
+    if not keep_data and any(pl[i].is_shard() for i in par.data_dims):
+        pl = [Replicate() if i in par.data_dims else q for i, q in enumerate(pl)]
+        x = x.redistribute(x.device_mesh, pl)
+    grad = [Partial() if i in par.data_dims and not q.is_shard() else q for i, q in enumerate(pl)]
+    return x.to_local(grad_placements=grad)
+
+
+def _layer_gather(path, x, par):
+    """(mesh dims, dim of one layer's tensor) along which a stacked layer
+    leaf is FSDP-sharded, or None: where the data axes shard it on one
+    dimension other than the period axis."""
+    dims = {i: x.placements[i].dim for i in par.data_dims if x.placements[i].is_shard()}
+    if path[0] != "stages" or len(set(dims.values())) != 1 or 0 in dims.values():
+        return None
+    return tuple(sorted(dims)), next(iter(dims.values())) - 1
+
+
+def _local_lm(params, cfg, par) -> LM:
+    """The `LM` of this rank's local tensors (`_compute_local`), from
+    DTensor parameters (a plain tensor raises). A layer's FSDP shards stay
+    local: the block gathers them when it runs (`Block.gathers`), and remat
+    again in the backward pass, so a step holds one period's gathered
+    weights, as the reference's scanned periods do. The other data-sharded
+    leaves (embedding, head, a stack sharded on its period axis) are
+    gathered here; the 2-D expert layout's stacks compute on their data
+    shards."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel import sharding as SH
+
+    tree = params.tree if isinstance(params, LM) else params
+    moe_2d = getattr(cfg, "moe_2d", False)
+    gathers = {}
+
+    def leaf(path, x):
+        if not isinstance(x, DTensor):
+            raise TypeError(f"under a mesh every parameter is a DTensor (parallel.sharding.shard_tree); "
+                            f"{'.'.join(path)} is a {type(x).__name__}")
+        if moe_2d and _is_2d_expert_stack(path, x):
+            return _compute_local(x, par, keep_data=True)
+        g = _layer_gather(path, x, par)
+        if g is not None:
+            gathers[path] = g
+        return _compute_local(x, par, keep_data=g is not None)
+
+    lm = LM(cfg, SH._map_with_path(leaf, tree))
+    if gathers:
+        layers = iter(lm.layers)
+        for name, n_periods, pat in stage_layout(cfg):
+            for _ in range(n_periods):
+                for j in range(len(pat)):
+                    next(layers).gathers = {p[3:]: g for p, g in gathers.items() if p[1:3] == (name, f"b{j}")}
+    return lm
+
+
+def _local_batch(batch, par):
+    """(this rank's batch, whether it is the whole batch): DTensors give
+    their local tensors; a global leaf (every rank holding the whole
+    batch) its data shard (a view) where the data axes divide its batch,
+    else the whole of it."""
+    from torch.distributed.tensor import DTensor
+
+    out, whole = {}, False
+    for k, x in batch.items():
+        if isinstance(x, DTensor):
+            whole = whole or not any(x.placements[i].is_shard(0) for i in par.data_dims) and par.D > 1
+            out[k] = x.to_local()
+        elif x.ndim == 0 or x.shape[0] % par.D:
+            whole = whole or par.D > 1
+            out[k] = x
+        else:
+            out[k] = C.slice_data(x, par)
+    return out, whole
+
+
+def _as_dtensor(logits, cfg, par, whole):
+    """Local logits (B_local, S, V_local) as the global DTensor they are a
+    block of: batch-sharded on the data axes unless ``whole``,
+    vocab-sharded on ``model`` where the head is."""
+    from ..parallel import sharding as SH
+
+    V = _out_dim(cfg)
+    vocab = "model" if par.sharded(logits.shape[-1], V) else None
+    data = None if whole else SH.data_axes(par.mesh) or None
+    B = logits.shape[0] * (1 if whole else par.D)
+    return SH.to_dtensor(par.mesh, (data, None, vocab), logits, (B, logits.shape[1], V))
+
+
+def _forward_local(params, cfg, batch, par, use_kernel, remat):
+    """(local logits, aux, local batch, whole) under a mesh."""
+    lm = _local_lm(params, cfg, par)
+    b, whole = _local_batch(batch, par)
+    x, positions = _embed(lm, cfg, b, par)
+    x, aux = _run_layers(lm, cfg, x, positions, use_kernel, remat, par, whole)
+    return _head(lm, cfg, x, par), aux, b, whole
 
 
 def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat=True):
@@ -338,8 +523,12 @@ def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat
     always takes the plain chunked attention, as the reference's does. The
     kernels are forward only: under grad mode with trainable leaves they
     raise, so a differentiated forward takes ``use_kernel=False``.
-    ``remat``: see `_run_layers` (no effect without grad mode)."""
-    _no_mesh(mesh)
+    ``remat``: see `_run_layers` (no effect without grad mode). Under a
+    mesh the logits are a DTensor (module docstring)."""
+    par = C.as_par(mesh)
+    if par is not None:
+        logits, aux, _, whole = _forward_local(params, cfg, batch, par, use_kernel, remat)
+        return _as_dtensor(logits, cfg, par, whole), aux
     if not isinstance(params, LM):
         params = LM(cfg, params)
     x, positions = _embed(params, cfg, batch)
@@ -352,26 +541,123 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None, use_kernel=False, remat=
     ignored; for audio, so are the positions where ``batch["mask"]`` is
     False), plus 0.01 * aux / n_layers for a config with experts (the
     reference's MoE term), with the reference's defaults: the plain
-    sequence mixers (the kernels have no backward pass) and remat. A mesh
-    raises."""
-    _no_mesh(mesh)
-    logits, aux = forward(params, cfg, batch, mesh, use_kernel, remat)
-    mask = batch.get("mask") if cfg.arch_type == "audio" else None
-    loss = cross_entropy(logits, batch["labels"], mask=mask)
+    sequence mixers (the kernels have no backward pass) and remat. Under a
+    mesh whose model axis divides the vocab the cross-entropy is
+    `_sharded_cross_entropy`'s, else the plain one with its sums reduced
+    over the data axes, as the reference chooses."""
+    par = C.as_par(mesh)
+    if par is None:
+        logits, aux = forward(params, cfg, batch, None, use_kernel, remat)
+        mask = batch.get("mask") if cfg.arch_type == "audio" else None
+        loss = cross_entropy(logits, batch["labels"], mask=mask)
+    else:
+        logits, aux, b, _ = _forward_local(params, cfg, batch, par, use_kernel, remat)
+        mask = b.get("mask") if cfg.arch_type == "audio" else None
+        if par.model_dim is not None and _out_dim(cfg) % par.M == 0:
+            loss = _ce_local(logits, b["labels"], mask, par)
+        else:
+            loss = _data_cross_entropy(logits, b["labels"], mask, par)
     if cfg.n_experts:
         loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
     return loss
+
+
+def _data_cross_entropy(logits, labels, mask, par):
+    """`layers.cross_entropy` on whole-vocab logits, its two sums reduced
+    over the data axes."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    valid = (labels >= 0) if mask is None else (mask & (labels >= 0))
+    nll = torch.where(valid, logz - gold, 0.0)
+    total = C.reduce(torch.sum(nll), par, par.data_dims)
+    count = C.reduce(torch.sum(valid), par, par.data_dims)
+    return total / torch.clamp_min(count, 1)
+
+
+class _LogZ(torch.autograd.Function):
+    """log sum exp over the whole vocab of vocab-sharded logits lg (..., V/M):
+    the max shift (numerical stability only, no gradient) over the whole
+    vocab, as the reference takes it outside its shard_map, each shard's
+    sum of exponentials, their sum over ``model``; the gradient this
+    shard's softmax, exp(lg - logz). On an axis of 1 it is
+    `torch.logsumexp`'s arithmetic and gradient to the bit."""
+
+    @staticmethod
+    def forward(ctx, lg, par):
+        m = C.max_model(torch.amax(lg, -1), par)
+        m = torch.where(m.abs() == torch.inf, 0.0, m)
+        logz = torch.log(C.reduce(torch.sum(torch.exp(lg - m[..., None]), -1), par)) + m
+        ctx.save_for_backward(lg, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, logz = ctx.saved_tensors
+        return g[..., None] * torch.exp(lg - logz[..., None]), None
+
+
+def _ce_local(lg, lb, mask, par):
+    """`_sharded_cross_entropy` on this rank's blocks: lg (B_l, S, V/M)."""
+    lg = lg.float()
+    v_local = lg.shape[-1]
+    logz = _LogZ.apply(lg, par)
+    local = lb.long() - par.m * v_local
+    in_shard = (local >= 0) & (local < v_local)
+    # the gold logit of the shard that holds it (the reference sums a
+    # one-hot product: the same float32 value), zero in the others
+    picked = torch.gather(lg, -1, torch.where(in_shard, local, 0)[..., None])[..., 0]
+    gold = C.reduce(torch.where(in_shard, picked, 0.0), par)
+    valid = (lb >= 0) if mask is None else (mask & (lb >= 0))
+    nll = torch.where(valid, logz - gold, 0.0)
+    total = C.reduce(torch.sum(nll), par, par.data_dims)
+    count = C.reduce(torch.sum(valid), par, par.data_dims)
+    return total / torch.clamp_min(count, 1)
+
+
+def _sharded_cross_entropy(logits, labels, mesh, mask=None):
+    """CE with the vocab axis kept sharded end to end: each vocab shard
+    reduces locally and only (B, S) statistics cross ranks (a sum over
+    ``model``, then over the data axes). ``logits`` (B, S, V): a DTensor
+    (its local block is used) or a global tensor (this rank's block of it
+    under (data, None, 'model') is used); ``labels``/``mask`` likewise."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel import sharding as SH
+
+    par = C.as_par(mesh)
+    dp = SH.data_axes(par.mesh) if logits.shape[0] % par.D == 0 else None
+    block = lambda x, spec: x.to_local() if isinstance(x, DTensor) else \
+        SH.local_block(par.mesh, SH.sanitize_spec(par.mesh, spec, x.shape), x)
+    lg = block(logits, (dp or None, None, "model"))
+    lb = block(labels, (dp or None, None))
+    mk = None if mask is None else block(mask, (dp or None, None))
+    return _ce_local(lg, lb, mk, par)
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, mesh=None) -> list[dict]:
     """One cache per layer: a KV cache (`attention.init_kv_cache`; MLA: the
     latent cache, `attention.init_mla_cache`), for an ``rwkv`` layer its
     state {"shift", "wkv", "shift_c"} (`rwkv.init_rwkv_state`), for a
-    ``mamba`` layer its state {"conv", "h"} (`mamba.init_mamba_state`)."""
+    ``mamba`` layer its state {"conv", "h"} (`mamba.init_mamba_state`).
+    With ``mesh`` its leaves are DTensors placed by
+    `parallel.sharding.cache_specs`, each rank allocating its block."""
+    if mesh is not None:
+        from ..parallel import sharding as SH
+
+        meta = init_cache(cfg, batch, max_len, "meta")
+
+        def leaf(path, x, spec):
+            spec = SH.sanitize_spec(mesh, spec, x.shape)
+            local = torch.full(SH.local_shape(mesh, spec, x.shape), -1 if path[-1] == "pos_tag" else 0,
+                               dtype=x.dtype, device=device)
+            return SH.to_dtensor(mesh, spec, local, x.shape)
+
+        return SH._map_with_path(leaf, meta, SH.cache_specs(mesh, meta))
     dt = dtype_of(cfg)
 
     def one(kind):
@@ -386,37 +672,70 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list[dict]
     return [one(kind) for kind in layer_kinds(cfg)]
 
 
+def _decode_layers(params: LM, cfg, x, pos: int, cache, par=None, whole=False):
+    """The layers of one decode step over per-layer caches of local tensors
+    (updated in place; the recurrent states' entries are rebound)."""
+    for blk, c in zip(params.layers, cache):
+        blk = _gathered(blk, par)
+        h = rms_norm(x, blk.ln, cfg.norm_eps)
+        if blk.kind == "rwkv":
+            # one step of the plain recurrence from the carried state
+            inner, c_t = rwk.time_mix(blk.rwkv, cfg, h, c, par=par)
+            x, c_c = _channel_mix(blk, cfg, x + _post(blk, cfg, inner), c, par)
+            c.update(c_t, **c_c)
+            continue
+        if blk.kind == "mamba":
+            # one step of the plain recurrence from the carried state
+            inner, new = mam.mamba_forward(blk.mamba, cfg, h, c, par=par)
+            c.update(new)
+        elif cfg.use_mla:
+            inner, _ = attn.mla_decode(blk.attn, cfg, h, pos, c, par=par)
+        else:
+            inner, _ = attn.gqa_decode(blk.attn, cfg, h, pos, c, window=_block_window(cfg, blk.kind),
+                                       par=par)
+        x, _ = _ffn(blk, cfg, x + _post(blk, cfg, inner), par, whole)
+    return x
+
+
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None):
     """token: (B, 1) int; pos: the position of every row. Updates ``cache``
     in place and returns (logits (B, 1, V), cache). The token embedding is
     looked up whatever the frontend, as in the reference (an encoder's
     serving skips decode: `launch.specs.shape_skip_reason`). A MoE layer
-    routes the B tokens of the step (capacity from T = B)."""
-    _no_mesh(mesh)
-    x = params.embed[token]
-    for blk, c in zip(params.layers, cache):
-        h = rms_norm(x, blk.ln, cfg.norm_eps)
-        if blk.kind == "rwkv":
-            # one step of the plain recurrence from the carried state
-            inner, c_t = rwk.time_mix(blk.rwkv, cfg, h, c)
-            x, c_c = _channel_mix(blk, cfg, x + _post(blk, cfg, inner), c)
-            c.update(c_t, **c_c)
-            continue
-        if blk.kind == "mamba":
-            # one step of the plain recurrence from the carried state
-            inner, new = mam.mamba_forward(blk.mamba, cfg, h, c)
-            c.update(new)
-        elif cfg.use_mla:
-            inner, _ = attn.mla_decode(blk.attn, cfg, h, pos, c)
-        else:
-            inner, _ = attn.gqa_decode(blk.attn, cfg, h, pos, c, window=_block_window(cfg, blk.kind))
-        x, _ = _ffn(blk, cfg, x + _post(blk, cfg, inner))
-    return _head(params, cfg, x), cache
+    routes the B tokens of the step (capacity from T = B). Under a mesh
+    the cache's leaves are DTensors placed by
+    `parallel.sharding.cache_specs` (`init_cache(mesh=)`; a plain tensor
+    raises), the logits a DTensor."""
+    par = C.as_par(mesh)
+    if par is None:
+        x = _lookup(params.embed, token, cfg)
+        return _head(params, cfg, _decode_layers(params, cfg, x, pos, cache)), cache
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel import sharding as SH
+
+    lm = _local_lm(params, cfg, par)
+    b, whole = _local_batch({"token": token}, par)
+    def local_leaf(path, x):
+        if not isinstance(x, DTensor):
+            raise TypeError(f"under a mesh the cache's leaves are DTensors (init_cache(mesh=)); "
+                            f"layer {path[0]}'s {path[-1]} is a {type(x).__name__}")
+        return x.to_local()
+
+    local = SH._map_with_path(local_leaf, cache)
+    views = [dict(c) for c in local]
+    x = _lookup(lm.embed, b["token"], cfg, par)
+    x = _decode_layers(lm, cfg, x, pos, local, par, whole)
+    for c, v in zip(local, views):            # a rebound state is written back
+        for k, t in v.items():
+            if c[k] is not t:
+                t.copy_(c[k])
+    return _as_dtensor(_head(lm, cfg, x, par), cfg, par, whole), cache
 
 
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
     """Full-sequence forward returning logits (the cache is built by the
-    decode path, as in the reference)."""
+    decode path, as in the reference); a DTensor under a mesh."""
     return forward(params, cfg, batch, mesh=mesh, use_kernel=use_kernel, remat=False)[0]

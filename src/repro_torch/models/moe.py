@@ -10,15 +10,25 @@ contributions in the reference's order (ascending expert, from zero, in
 x's type) as a gather over the token's at most ``top_k`` slots, not a
 scatter-add: a scatter with atomics would change bf16 sums from run to run.
 The shared experts (DeepSeek-V3) and the dense residual (Arctic) are dense
-FFNs added beside the routed ones. Expert parallelism (`moe_ffn` under a
-mesh, `moe_ffn_2d`) is not ported (ROADMAP.md §1, item 11b); the
-``expert_slice`` form of `moe_ffn_local`, what one shard of it computes,
-is.
+FFNs added beside the routed ones.
+
+Under a mesh, `moe_ffn` is the reference's expert-parallel layout: experts
+on ``model`` (each rank runs `moe_ffn_local`'s ``expert_slice`` of its own
+experts over its data shard's tokens: routing and capacity per data
+shard), the partial outputs summed over ``model``, the load-balance term
+averaged over the mesh; the shared experts and the dense residual are
+d_ff-sharded dense FFNs whose partial sums join that sum. `moe_ffn_2d`
+(the serving layout, ``cfg.moe_2d``): experts on ``model`` times each
+expert's d_ff on the other axes, the tokens of the whole batch on every
+rank, the partial outputs summed over every axis. Each token's slots keep
+`_combine`'s fixed order; nothing is summed with atomics.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import collectives as C
 
 from .layers import constant, dense_init, gelu, gelu_mlp, swiglu
 
@@ -67,7 +77,26 @@ def init_dense_ffn(generator, cfg, dtype, d_ff=None, out=None) -> dict:
     }
 
 
-def dense_ffn(p, cfg, x):
+def dense_ffn(p, cfg, x, par=None, d_ff=None):
+    """The dense FFN of ``p``. Under a mesh whose ``model`` axis splits its
+    d_ff (``d_ff``: the whole width, cfg.d_ff by default) the replicated x
+    enters each rank's columns and the partial sums are reduced; ``b_down``
+    is added once, after the sum."""
+    if par is not None and par.sharded(p["w_up"].shape[1], d_ff or cfg.d_ff):
+        return _add_bias(p, C.reduce(_partial(p, cfg, C.copy(x, par)), par))
+    return _dense(p, cfg, x)
+
+
+def _partial(p, cfg, x):
+    """A d_ff shard's share of the dense FFN: all of it but ``b_down``."""
+    return _dense(p, cfg, x) if "w_gate" in p else gelu_mlp(x, p["w_up"], p["w_down"], p.get("b_up"))
+
+
+def _add_bias(p, out):
+    return out + p["b_down"] if "w_gate" not in p and p.get("b_down") is not None else out
+
+
+def _dense(p, cfg, x):
     if "w_gate" in p:
         if cfg.ffn_kind == "geglu":  # gemma2: gelu-gated
             g = x @ p["w_gate"]
@@ -88,9 +117,16 @@ def router_topk(router_w, x, top_k: int):
     w, ids = w[:, :top_k], ids[:, :top_k]
     w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-9)
     E = router_w.shape[-1]
-    routed = torch.bincount(ids[:, 0], minlength=E).float() / ids.shape[0]
+    routed = _counts(ids[:, 0], E).float() / ids.shape[0]
     aux = E * torch.sum(routed * torch.mean(probs, dim=0))
     return w, ids, aux
+
+
+def _counts(ids, n: int):
+    """How many of ``ids`` name each of 0..n-1 (`torch.bincount` with
+    ``minlength`` n, at a size that does not depend on the values, so that
+    a trace on fake tensors can size it)."""
+    return torch.zeros((n,), dtype=torch.long, device=ids.device).index_add_(0, ids, torch.ones_like(ids))
 
 
 def _dispatch_tables(ids, weights, n_experts: int, capacity: int):
@@ -107,7 +143,7 @@ def _dispatch_tables(ids, weights, n_experts: int, capacity: int):
     order = torch.argsort(flat_e, stable=True)
     e_sorted, t_sorted, w_sorted = flat_e[order], flat_t[order], flat_w[order]
 
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = _counts(flat_e, n_experts)
     offsets = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=dev) - offsets[e_sorted]      # rank within expert
     keep = pos_in_e < capacity
@@ -157,10 +193,19 @@ def moe_ffn_local(p, cfg, x, *, expert_slice=None, n_total_experts=None):
     experts; with ``expert_slice`` (lo, size) only those experts compute (one
     expert-parallel shard, whose ``p`` holds their stacks only: the others'
     assignments are dropped, and capacity scales by size / E)."""
-    T, d = x.shape
-    E = n_total_experts or cfg.n_experts
     w, ids, aux = router_topk(p["router"], x, cfg.top_k)
+    out = _routed(p, cfg, x, w, ids, expert_slice, n_total_experts or cfg.n_experts)
+    if "shared" in p:
+        out = out + dense_ffn(p["shared"], cfg, x)
+    if "dense_res" in p:
+        out = out + dense_ffn(p["dense_res"], cfg, x)
+    return out, aux
 
+
+def _routed(p, cfg, x, w, ids, expert_slice, E):
+    """The routed experts' sum for every token (the experts of
+    ``expert_slice`` only, if given)."""
+    T, d = x.shape
     if expert_slice is not None:
         lo, size = expert_slice
         local = (ids >= lo) & (ids < lo + size)
@@ -179,29 +224,88 @@ def moe_ffn_local(p, cfg, x, *, expert_slice=None, n_total_experts=None):
 
     x_ec = x[token_idx]                                             # (E, C, d)
     y_ec = _expert_compute(p, x_ec) * gate[..., None].to(x.dtype)
-    out = _combine(y_ec, slot_of, x.dtype)
+    return _combine(y_ec, slot_of, x.dtype)
 
-    if "shared" in p:
-        out = out + dense_ffn(p["shared"], cfg, x)
-    if "dense_res" in p:
-        out = out + dense_ffn(p["dense_res"], cfg, x)
+
+def _moe_sharded(p, cfg, x, par, dims, expert_slice):
+    """One rank's routed experts over its tokens x (T, d), with the shared
+    experts and the dense residual, summed over the mesh axes ``dims``.
+    The replicated x and gates enter this rank's experts through
+    `collectives.copy`, so their gradients are whole on every rank. A
+    shared FFN whose d_ff the model axis splits is a partial sum too (on
+    one data rank only where ``dims`` cross the data axes, whose ranks hold
+    the same tokens); the partials cross ranks in one reduction, stacked,
+    and are added after it in the reference's order (the routed sum, then
+    each extra); an extra the model axis does not split is added whole."""
+    w, ids, aux = router_topk(p["router"], x, cfg.top_k)
+    xe, we = C.copy(x, par), C.copy(w, par)
+    parts = [_routed(p, cfg, xe, we, ids, expert_slice, cfg.n_experts)]
+    eff = cfg.moe_d_ff or cfg.d_ff
+    widths = {"shared": cfg.n_shared_experts * eff, "dense_res": cfg.d_ff}
+    extras = [(p[n], par.sharded(p[n]["w_up"].shape[1], widths[n])) for n in widths if n in p]
+    owner = par.d == 0 or not set(par.data_dims) & set(dims)
+    for q, split in extras:
+        if split:
+            parts.append(_partial(q, cfg, xe) if owner else torch.zeros_like(parts[0]))
+    summed = C.reduce(torch.stack(parts), par, dims)
+    out, k = summed[0], 1
+    for q, split in extras:
+        if split:
+            out, k = _add_bias(q, out + summed[k]), k + 1
+        else:
+            out = out + _dense(q, cfg, x)
     return out, aux
 
 
-def _no_mesh():
-    raise NotImplementedError(
-        "expert parallelism (MoE under a mesh) is not ported yet: ROADMAP.md §1, item 11b")
-
-
 def moe_ffn_2d(p, cfg, x, mesh, model_axis: str = "model"):
-    """The reference's serving layout over a mesh: not ported (item 11b)."""
-    _no_mesh()
-
-
-def moe_ffn(p, cfg, x, mesh=None, model_axis: str = "model"):
-    """(B, S, d) MoE FFN -> ((B, S, d), aux), on one device; a mesh raises."""
-    if mesh is not None:
-        _no_mesh()
+    """Serving layout: experts on 'model' x each expert's d_ff on the other
+    axes (``p``: this rank's (E/M, d, eff/D) stacks); the whole batch's
+    tokens on every rank (this rank's data shard of x (B, S, d) gathered,
+    its slice of the output returned), the partial outputs summed over
+    every axis and the aux averaged over the mesh."""
+    par = C.as_par(mesh)
+    if model_axis != "model":
+        raise ValueError("the mesh's expert axis is 'model'")
     B, S, d = x.shape
-    out, aux = moe_ffn_local(p, cfg, x.reshape(-1, d))
-    return out.reshape(B, S, d), aux
+    full = C.gather_data(x.reshape(-1, d), par)
+    e_local = p["w_gate"].shape[0]
+    out, aux = _moe_sharded(p, cfg, full, par, par.all_dims,
+                            (par.m * e_local, e_local) if par.sharded(e_local, cfg.n_experts) else None)
+    return C.slice_data(out, par).reshape(B, S, d), C.mean_data(aux, par)
+
+
+def moe_ffn(p, cfg, x, mesh=None, model_axis: str = "model", tokens_whole: bool = False):
+    """(B, S, d) MoE FFN -> ((B, S, d), aux); expert-parallel over
+    ``model`` under a mesh (module docstring), where ``p`` holds this
+    rank's experts and x its data shard of the tokens, or, with
+    ``tokens_whole``, the whole batch (one the data axes do not divide).
+    Tokens are routed as the reference shards them: per data shard, by
+    blocks of the whole batch's tokens where the data axes divide them, all
+    together otherwise; with a model axis of 1, all together."""
+    B, S, d = x.shape
+    flat = x.reshape(-1, d)
+    par = C.as_par(mesh)
+    if par is None:
+        out, aux = moe_ffn_local(p, cfg, flat)
+        return out.reshape(B, S, d), aux
+    if model_axis != "model":
+        raise ValueError("the mesh's expert axis is 'model'")
+    if par.M == 1:                            # the reference's unsharded layer
+        full = flat if tokens_whole else C.gather_data(flat, par)
+        out, aux = moe_ffn_local(p, cfg, full)
+        out = out if tokens_whole else C.slice_data(out, par)
+        return out.reshape(B, S, d), C.mean_data(aux, par)
+    if getattr(cfg, "moe_2d", False):
+        if tokens_whole:
+            raise ValueError("moe_ffn_2d takes a data-sharded batch")
+        return moe_ffn_2d(p, cfg, x, par, model_axis)
+    e_local = p["w_gate"].shape[0]
+    if not par.sharded(e_local, cfg.n_experts):
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not split over a model axis of {par.M}")
+    chunked = tokens_whole and par.D > 1 and (B * S) % par.D == 0
+    if chunked:
+        flat = C.slice_data(flat, par)
+    out, aux = _moe_sharded(p, cfg, flat, par, par.model_dims(), (par.m * e_local, e_local))
+    if chunked:
+        out = C.gather_data(out, par)
+    return out.reshape(B, S, d), C.mean_data(aux, par)

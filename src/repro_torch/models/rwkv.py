@@ -15,6 +15,14 @@ plain recurrence, as the reference's ``lax.scan`` does.
 Channel mix is the RWKV squared-ReLU FFN. The reference's simplification is
 kept: token shift uses learned static lerp weights (the low-rank
 data-dependent decay is kept, the per-token-shift LoRA omitted).
+
+Under a mesh (``par``) each rank holds its ``model`` shard
+(`parallel.sharding`): the time mix's r/k/v/g columns, decay, bonus and
+group norm on its heads (the WKV kernel launches once per shard and
+layer), ``wo``'s partial sums reduced; the channel mix's d_ff columns,
+``cv``'s partial sums reduced, and ``cr``'s d columns, whose product with
+the reduced sum is gathered. The carried token shifts are d-sharded
+(`parallel.sharding.cache_specs`) and gathered for the step.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.parallel import collectives as C
 
 from .layers import constant, dense_init
 
@@ -68,10 +77,11 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu
 
 
-def _decay(p, xw):
+def _decay(p, xw, par=None, sharded=False):
     """Data-dependent per-channel decay in (0, 1): exp(-exp(.)). The LoRA
     products in the model's type, the double exponential in float32."""
-    loraw = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    a = torch.tanh(xw @ p["w_lora_a"])
+    loraw = (C.copy(a, par) if sharded else a) @ p["w_lora_b"]
     return torch.exp(-torch.exp((p["w_bias"] + loraw).float()))
 
 
@@ -85,50 +95,76 @@ def _group_norm(y, g, b, H, eps=1e-5):
     return (yh.reshape(B, S, d) * g + b).to(y.dtype)
 
 
-def time_mix(p, cfg, x, state=None, use_kernel="auto"):
+def _shift_state(state, key, x, par, sharded):
+    """The carried token shift (B, d), gathered where it is d-sharded, or
+    zeros for a fresh sequence."""
+    if state is None:
+        return x.new_zeros((x.shape[0], x.shape[2]))
+    return C.gather(state[key], par) if sharded else state[key]
+
+
+def time_mix(p, cfg, x, state=None, use_kernel="auto", par=None):
     """x: (B, S, d); state: {"shift": (B, d), "wkv": (B, H, hd, hd)} carried
     from earlier tokens, or None for a fresh sequence. Returns (out, state).
-
     From a carried state the new state holds the last token and the
     recurrence's final state. A fresh sequence returns no state (None): like
     the TPU kernel, the CUDA kernel writes only y, and the forward path
     discards the state. ``use_kernel`` as in `ops.rwkv6_scan`, which raises
-    for True with a carried state.
+    for True with a carried state. Under a mesh, H is the local heads.
     """
     B, S, d = x.shape
     hd = cfg.rwkv_head_dim
-    H = d // hd
-    prev = state["shift"] if state is not None else x.new_zeros((B, d))
+    sharded = par is not None and par.sharded(p["wr"].shape[1], d)
+    if par is not None and sharded != par.sharded(p["u"].shape[0], d // hd):
+        raise ValueError(f"{cfg.name}: d {d} and its {d // hd} heads do not split alike over {par.M}")
+    H = p["u"].shape[0]
+    d_l = H * hd
+    prev = _shift_state(state, "shift", x, par, sharded)
     xs = _shift(x, prev)
     mu = p["mu"]
-    r = (_mix(x, xs, mu[0]) @ p["wr"]).reshape(B, S, H, hd)
-    k = (_mix(x, xs, mu[1]) @ p["wk"]).reshape(B, S, H, hd)
-    v = (_mix(x, xs, mu[2]) @ p["wv"]).reshape(B, S, H, hd)
-    g = _mix(x, xs, mu[3]) @ p["wg"]
-    w = _decay(p, _mix(x, xs, mu[4])).reshape(B, S, H, hd)    # float32
-
+    mix = lambda i: C.copy(_mix(x, xs, mu[i]), par) if sharded else _mix(x, xs, mu[i])
+    r = (mix(0) @ p["wr"]).reshape(B, S, H, hd)
+    k = (mix(1) @ p["wk"]).reshape(B, S, H, hd)
+    v = (mix(2) @ p["wv"]).reshape(B, S, H, hd)
+    g = mix(3) @ p["wg"]
+    w = _decay(p, _mix(x, xs, mu[4]), par, sharded).reshape(B, S, H, hd)    # float32
     # (B, H, S, hd) views of the (B, S, H, hd) projections in the model's
     # type; the scan casts them to float32 (exactly) and returns y in float32
     rs, ks, vs, ws = (t.transpose(1, 2) for t in (r, k, v, w))
     y, wkv = wkv_ops.rwkv6_scan(rs, ks, vs, ws, p["u"], None if state is None else state["wkv"],
                                 out_dtype=torch.float32, use_kernel=use_kernel)
-    y = y.transpose(1, 2).reshape(B, S, d)
+    y = y.transpose(1, 2).reshape(B, S, d_l)
     y = _group_norm(y, p["ln_g"].float(), p["ln_b"].float(), H)
     y = y.to(x.dtype) * F.silu(g)
+    out = y @ p["wo"]
+    if sharded:
+        out = C.reduce(out, par)
     if state is None:
-        return y @ p["wo"], None
-    return y @ p["wo"], {"shift": x[:, -1], "wkv": wkv.to(state["wkv"].dtype)}
+        return out, None
+    last = C.split(x[:, -1], par) if sharded else x[:, -1]
+    return out, {"shift": last, "wkv": wkv.to(state["wkv"].dtype)}
 
 
-def channel_mix(p, cfg, x, state=None):
+def channel_mix(p, cfg, x, state=None, par=None):
     """The RWKV FFN. state: {"shift_c": (B, d)}, or None for a fresh sequence."""
-    prev = state["shift_c"] if state is not None else x.new_zeros((x.shape[0], x.shape[2]))
+    d = x.shape[2]
+    ff_sharded = par is not None and par.sharded(p["ck"].shape[1], cfg.d_ff)
+    d_sharded = par is not None and par.sharded(p["cr"].shape[1], d)
+    prev = _shift_state(state, "shift_c", x, par, d_sharded)
     xs = _shift(x, prev)
     mu = p["mu_c"]
-    k = torch.square(torch.relu(_mix(x, xs, mu[0]) @ p["ck"]))
+    xk, xr = _mix(x, xs, mu[0]), _mix(x, xs, mu[1])
+    k = torch.square(torch.relu((C.copy(xk, par) if ff_sharded else xk) @ p["ck"]))
     kv = k @ p["cv"]
-    r = torch.sigmoid(_mix(x, xs, mu[1]) @ p["cr"])
-    return r * kv, {"shift_c": x[:, -1]}
+    if ff_sharded:
+        kv = C.reduce(kv, par)
+    if d_sharded:
+        r = torch.sigmoid(C.copy(xr, par) @ p["cr"])
+        out = C.gather(r * C.split(kv, par), par)
+    else:
+        out = torch.sigmoid(xr @ p["cr"]) * kv
+    last = C.split(x[:, -1], par) if d_sharded else x[:, -1]
+    return out, {"shift_c": last}
 
 
 def init_rwkv_state(cfg, batch, dtype, device) -> dict:

@@ -949,3 +949,26 @@ def test_topk_sparsify_on_the_card_equals_the_cpu(card):
     u = torch.randn(2**24 + 1, generator=torch.Generator().manual_seed(2))
     got = topk_sparsify({"w": u.to(card)}, 0.3)["w"].cpu()
     assert torch.equal(got, topk_sparsify({"w": u}, 0.3)["w"])
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_on_two_cards(card, tmp_path):
+    """`moe_ffn` on a (1, 2) NCCL mesh, two processes, one card each:
+    each rank's two experts of four, the partial outputs summed over
+    ``model``, against the reference's composition on one card (each
+    shard's `moe_ffn_local` expert slice, summed, then the dense residual),
+    float32, within 1e-6 of the output's scale (the MoE parity law)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (a (1, 2) NCCL mesh)")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_mesh_worker.py")
+    r = subprocess.run([sys.executable, worker, "--cuda-ep", str(tmp_path)], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(tmp_path / "out.pkl", "rb") as f:
+        out = pickle.load(f)
+    assert out["max_abs_err"] <= 1e-6 * out["scale"], out

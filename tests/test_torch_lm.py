@@ -248,12 +248,22 @@ def test_serve_loop_tokens_match_reference(case):
 def test_serve_loop_sampling_is_seeded_and_in_range():
     """greedy=False samples from the softmax with the caller's generator
     (the reference draws with its own PRNG keys, so only the law is
-    shared): the same seed gives the same tokens, every token in range."""
+    shared): the same seed gives the same tokens, with or without a
+    (1, 1) mesh, every token in range."""
     _, _, cfg, tp = _models("qwen2_5_3b")
     runs = [ServeLoop(cfg, tp, 2, max_len=32).run(
         [[1, 2, 3], [4, 5]], max_new=5, greedy=False,
         generator=torch.Generator().manual_seed(7))[0] for _ in range(2)]
     assert runs[0] == runs[1]
+    # one sampler with or without a mesh: a (1, 1) mesh draws the same tokens
+    from repro_torch.launch.mesh import open_mesh
+    from repro_torch.parallel import sharding as SH
+
+    mesh = open_mesh(device_type="cpu")
+    placed = SH.shard_tree(mesh, SH.param_specs(tp.tree), tp.tree)
+    on_mesh = ServeLoop(cfg, placed, 2, max_len=32, mesh=mesh).run(
+        [[1, 2, 3], [4, 5]], max_new=5, greedy=False, generator=torch.Generator().manual_seed(7))[0]
+    assert on_mesh == runs[0]
     assert all(len(v) == 5 and all(0 <= t < cfg.vocab for t in v) for v in runs[0].values())
 
 
@@ -344,20 +354,34 @@ def test_list_archs_is_the_references():
 
 
 def test_unported_paths_raise():
+    """The kernels on CPU tensors raise; a one-process (1, 1) mesh runs
+    the mesh path of prefill and decode (dense and MoE), equal to mesh=None
+    bit for bit (every collective there is the identity)."""
+    from repro_torch.launch.mesh import open_mesh
+    from repro_torch.parallel import sharding as SH
+
     cfg = smoke_variant(registry.get_config("gemma2_2b"))
     tp = M.init_params(cfg, torch.Generator().manual_seed(0))
     toks = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
     with pytest.raises(ValueError, match="use_kernel=True needs CUDA tensors"):
         M.prefill(tp, cfg, toks, use_kernel=True)
-    with pytest.raises(NotImplementedError):
-        M.prefill(tp, cfg, toks, mesh=object())
-    # MoE layers run; expert parallelism over a mesh does not (ROADMAP item 11b)
+    mesh = open_mesh(device_type="cpu")
     moe_cfg = smoke_variant(registry.get_config("arctic_480b"))
     moe_lm = M.init_params(moe_cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 11b"):
-        M.prefill(moe_lm, moe_cfg, toks, mesh=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 11b"):
-        moe.moe_ffn(moe_lm.layers[0].ffn, moe_cfg, torch.zeros((1, 8, moe_cfg.d_model)), mesh=object())
+    for c, lm in ((cfg, tp), (moe_cfg, moe_lm)):
+        placed = SH.shard_tree(mesh, SH.param_specs(lm.tree), lm.tree)
+        got = M.prefill(placed, c, toks, mesh=mesh)
+        assert torch.equal(got.to_local(), M.prefill(lm, c, toks))
+        cache, cache_m = M.init_cache(c, 1, 8, "cpu"), M.init_cache(c, 1, 8, "cpu", mesh=mesh)
+        for pos in range(3):
+            tok = toks["tokens"][:, pos:pos + 1] + pos
+            want, _ = M.decode_step(lm, c, tok, pos, cache)
+            got, _ = M.decode_step(placed, c, tok, pos, cache_m, mesh=mesh)
+            assert torch.equal(got.to_local(), want)
+    x = torch.randn((1, 8, moe_cfg.d_model), generator=torch.Generator().manual_seed(1))
+    out, aux = moe.moe_ffn(moe_lm.layers[0].ffn, moe_cfg, x, mesh=mesh)
+    want, want_aux = moe.moe_ffn(moe_lm.layers[0].ffn, moe_cfg, x)
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -244,14 +244,19 @@ def test_a_shard_computes_its_experts_kept_assignments():
 
 
 def test_moe_under_a_mesh_raises_naming_item_11b():
+    """Under a one-process (1, 1) mesh `moe_ffn` and `moe_ffn_2d` run the
+    whole layer (a model axis of 1 holds every expert, as the reference's
+    unsharded branch), equal to mesh=None bit for bit."""
+    from repro_torch.launch.mesh import open_mesh
+
     _, _, cfg, ffn = _moe_layer("arctic_480b")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 11b"):
-        moe.moe_ffn(ffn, cfg, x, mesh=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item 11b"):
-        moe.moe_ffn_2d(ffn, cfg, x, mesh=object())
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    mesh = open_mesh(device_type="cpu")
     out, aux = moe.moe_ffn(ffn, cfg, x)
     assert out.shape == x.shape and aux.shape == ()
+    for fn in (lambda: moe.moe_ffn(ffn, cfg, x, mesh=mesh), lambda: moe.moe_ffn_2d(ffn, cfg, x, mesh)):
+        got, got_aux = fn()
+        assert torch.equal(got, out) and torch.equal(got_aux, aux)
 
 
 # ---------------------------------------------------------------------------

@@ -258,12 +258,37 @@ def test_tree_round_trips(arch):
 
 
 def test_mesh_raises():
+    """`loss_fn` and the train step under a one-process (1, 1) mesh (the
+    state's leaves DTensors): the loss takes the vocab-sharded
+    cross-entropy (a model axis of 1 divides the vocab), within 1e-5 of
+    mesh=None's, and one step's loss, grad_norm, gradients and parameters
+    agree (grad_norm at rtol 1e-4; each gradient entry, read from the first
+    moment, at rtol 1e-4 / atol 1e-5; parameters within 2 lr, the moments'
+    first step dividing gradients of either cross-entropy)."""
+    from repro_torch.launch.mesh import open_mesh
+    from repro_torch.parallel import sharding as SH
+
     _, jp, cfg = _model("qwen2_5_3b")
     _, tb = _batches(cfg, 2, 1)[0]
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        M.loss_fn(_tree(jp, cfg), cfg, tb, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        T.build_train_step(cfg, mesh=object())
+    mesh = open_mesh(device_type="cpu")
+    tree = _tree(jp, cfg)
+    placed = SH.shard_tree(mesh, SH.param_specs(tree), _tree(jp, cfg))     # views of its own copy
+    want = M.loss_fn(tree, cfg, tb)
+    torch.testing.assert_close(M.loss_fn(placed, cfg, tb, mesh=mesh), want, rtol=1e-5, atol=0)
+    state = T.TrainState(tree, adamw(LR)[0](tree))
+    placed_state = T.TrainState(placed, adamw(LR)[0](placed))
+    _, m = T.build_train_step(cfg, lr=LR)(state, tb)
+    _, m_mesh = T.build_train_step(cfg, mesh=mesh, lr=LR)(placed_state, tb)
+    torch.testing.assert_close(m_mesh["loss"], m["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m_mesh["grad_norm"], m["grad_norm"], rtol=1e-4, atol=0)
+    for a, b in zip(tree_leaves(placed_state.params), tree_leaves(state.params), strict=True):
+        torch.testing.assert_close(a.to_local(), b, rtol=0, atol=2 * LR)
+    # each leaf's gradient, from AdamW's first moment (0.1 x the clipped
+    # gradient after one step from zero), entry by entry
+    unclip = lambda mu, norm: mu / (0.1 * min(1.0, 1.0 / float(norm)))
+    for a, b in zip(tree_leaves(placed_state.opt.mu), tree_leaves(state.opt.mu), strict=True):
+        torch.testing.assert_close(unclip(a.to_local(), m_mesh["grad_norm"]), unclip(b, m["grad_norm"]),
+                                   rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
