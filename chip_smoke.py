@@ -303,16 +303,33 @@ the CPU in place of the card):
    equal to the oracle's own count; DeepSeek's float32 decode of the first
    32 positions (the absorbed MLA, the latent cache) must match `forward`'s
    logits there within 2e-2 (tests/test_distributed_equivalence.py's
-   tolerance).
+   tolerance);
+21. the paper's evaluation (`repro_torch.paper`): each of the seven drivers
+   (Figs. 3, 4, 5, 6 and 8, Table II, the §IV-D analyses) with its quick
+   grid at Table-I width (N 10, K 50; Table II at N 4, K 5; Fig. 5's grid
+   and the runtime sizes at their own) on the card, then the three examples
+   (`launch.quickstart`, `launch.serve_scenarios`,
+   `launch.fedsem_autoencoder`), the allocator cut (`PAPER_REDUCED`).
+   Gates: every allocation a driver makes (`paper.common.watch`) finite,
+   with X binary and each subcarrier owned once (comm_only's relaxed X at
+   most once); Alg. A2's with every device served and feasible, and the
+   oracle's feasible; each row's objective `report` of its own allocation
+   (rtol 1e-6; the oracle's value rtol 1e-5); the quickstart's solve
+   likewise, the served requests as phase 15's, the autoencoder's rows
+   finite with a fit in [0.05, 0.95]; at least one objective-kernel launch
+   per driver and example, and no other kernel; fig4's sweep solved again
+   with ``use_kernel_objective=False`` gives the identical X, P and rho.
+   Printed: each driver's wall time, solves, launches and its claim checks
+   (recorded, not gated at cut depth).
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash, but MLA none; rwkv: WKV6; mamba: the
-selective scan) and every other kernel never; the allocator paths (3, 13, 14, 15, 16 and 18)
+selective scan) and every other kernel never; the allocator paths (3, 13, 14, 15, 16, 18 and 21)
 launch the objective kernel and no other; the training path (17) launches
 none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17, 18 and each
 model of 19) is
 driven with the kernels' launch counts set to 0 just before it and read
-just after (likewise each model of 20, each (1, 1) mesh path of 5, 8 and
+just after (likewise phase 21, each model of 20, each (1, 1) mesh path of 5, 8 and
 11, and phase 17's mesh step). With ``--profile``, one short solve
 per config (cut depth) also runs under `torch.profiler`, for the device's
 busy share. The last lines are the kernels' JSON record, the card's name
@@ -538,6 +555,16 @@ FED_REDUCED = ("allocator depth, both parts: the example's AllocatorConfig(inner
                "host; the full-width round: tokens uniform from a seeded torch.Generator (the "
                "bigram table would be 92 GB), 2 clients, 1 round, 1 local SGD step, the solved "
                "allocation's rho (1) held at 0.4 so that every leaf is sparsified below 1")
+
+#: phase 21: the paper's drivers and examples at Table-I width, the allocator
+#: at cut depth; the autoencoder example's rounds and rates
+PAPER_REDUCED = ("allocator depth: every driver's and example's AllocatorConfig -> "
+                 "cut_configs()['sca'] (1 outer iteration, P5 1 x 100, 100 PGD steps), its inner "
+                 "set per call, with 2 outer iterations for alg_analysis, whose convergence check "
+                 "reads the trace's last two; at default depth the seven drivers' quick grids "
+                 "took 836 s on an NVIDIA H100 80GB HBM3 (python -m repro_torch.paper.run); "
+                 "fedsem_autoencoder: 40 rounds and 5 rates -> 2 rounds at rho 0.3 and 1.0")
+PAPER_AE_ROUNDS, PAPER_AE_RHOS = 2, (0.3, 1.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -2859,6 +2886,136 @@ def phase_federated_lm(device):
     return report, launches + full_launches
 
 
+def check_paper_allocation(method: str, params, w, alloc, reports, what: str) -> None:
+    """One allocation a paper driver made (`paper.common.watch`): finite
+    leaves; X binary with each subcarrier owned once (comm_only: PGD's
+    relaxed X, each subcarrier owned at most once); Alg. A2 also gives every
+    device a subcarrier and is feasible, and so is the oracle; each row's
+    objective is `report` of its own allocation (rtol 1e-6; the oracle's is
+    the kernel's value, phase 14's rtol 1e-5)."""
+    import torch
+
+    from repro_torch.core import tree_index
+    from repro_torch.core.system import feasible, report
+
+    if method == "proposed":
+        check_allocation(params, alloc, what)
+        alloc = alloc.alloc
+    else:
+        for name in ("f", "P", "X", "rho"):
+            check(bool(torch.isfinite(getattr(alloc, name)).all()), f"{what}: non-finite {name}")
+        if method == "comm_only":
+            check(bool(((alloc.X >= 0) & (alloc.X <= 1)).all()
+                       and (alloc.X.sum(dim=-2) <= 1 + 1e-5).all()),
+                  f"{what}: relaxed X out of [0, 1] or a subcarrier owned more than once")
+        else:
+            check_binary_x(params, alloc.X, what)
+        if method == "exhaustive":
+            check(bool(feasible(params, alloc).all()), f"{what}: infeasible oracle allocation")
+    rtol = 1e-5 if method == "exhaustive" else 1e-6
+    for i, row in enumerate(reports):
+        want = float(report(tree_index(params, i), tree_index(w, i), tree_index(alloc, i))["objective"])
+        check(abs(row["objective"] - want) <= rtol * abs(want) + 1e-6,
+              f"{what}: row {i} objective {row['objective']} != report() of its allocation {want}")
+
+
+def phase_paper(device):
+    """Phase 21: the paper's seven drivers (`repro_torch.paper`, quick grids)
+    and the three examples at Table-I width, the allocator cut
+    (`PAPER_REDUCED`); every allocation checked as it is made, the
+    objective kernel's launches counted per driver; fig4's sweep again with
+    the plain scoring, for identical X, P and rho."""
+    import torch
+
+    from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.launch import fedsem_autoencoder, quickstart, serve_scenarios
+    from repro_torch.paper import common, fig4_pmax
+    from repro_torch.paper.run import DRIVERS
+
+    cut = cut_configs()["sca"]
+    out_dir = ROOT / "build" / "paper_smoke"    # the drivers' CSVs, beside the kernels
+    seen = []                 # (driver, method, allocation) of every allocation
+    current = [""]            # the driver running
+
+    def watcher(method, params, w, alloc, reports):
+        check_paper_allocation(method, params, w, alloc, reports, f"{current[0]}[{method}]")
+        seen.append((current[0], method, alloc))
+
+    out = {"reduced": PAPER_REDUCED, "drivers": {}, "examples": {}}
+    zero_launches()                              # the paper path starts here
+    with common.watch(watcher):
+        for name, mod in DRIVERS.items():
+            current[0] = name
+            allocator = cut._replace(outer_iters=2) if name == "alg_analysis" else cut
+            before = kernel.launches
+            t0 = time.perf_counter()
+            rows, claims = mod.run(quick=True, device=device, allocator=allocator, out_dir=out_dir)
+            wall = time.perf_counter() - t0
+            n = kernel.launches - before
+            check(n >= 1, f"{name}: the objective kernel never launched")
+            solves = sum(1 for d, m, _ in seen if d == name and m == "proposed")
+            out["drivers"][name] = dict(wall_s=wall, launches=n, solves=solves, rows=len(rows),
+                                        claims=claims)
+            print(f"paper[{name}]: {wall:.2f} s, {solves} solves, {n} objective-kernel launches, "
+                  f"{len(rows)} rows; claims (recorded, not gated: cut allocator depth on the "
+                  f"port's draws): " + ", ".join(f"{k}={v}" for k, v in claims.items()), flush=True)
+
+    # the three examples
+    t0 = time.perf_counter()
+    before = kernel.launches
+    params, res, rows = quickstart.run(device, cut)
+    check_allocation(params, res, "quickstart")
+    check(all(math.isfinite(float(r["objective"])) for r in rows.values()),
+          "quickstart: a non-finite objective")
+    out["examples"]["quickstart"] = dict(
+        wall_s=time.perf_counter() - t0, launches=kernel.launches - before,
+        objectives={k: float(r["objective"]) for k, r in rows.items()})
+
+    t0 = time.perf_counter()
+    before = kernel.launches
+    requests, result = serve_scenarios.run(device, cut._replace(inner="pgd"))
+    check_completions(requests, result.completions, "serve_scenarios")
+    out["examples"]["serve_scenarios"] = dict(
+        wall_s=time.perf_counter() - t0, launches=kernel.launches - before,
+        flushes=result.summary["batches"], latency_p50_s=result.summary["latency_p50_s"])
+
+    t0 = time.perf_counter()
+    before = kernel.launches
+    ae_rows, fit = fedsem_autoencoder.run(PAPER_AE_ROUNDS, PAPER_AE_RHOS, device, out_dir,
+                                          cut._replace(inner="pgd"))
+    check(all(math.isfinite(r["psnr_db"]) and 0.0 <= r["proxy_accuracy"] <= 1.0 for r in ae_rows)
+          and 0.05 <= float(fit.b) <= 0.95, "fedsem_autoencoder: a non-finite row or a bad fit")
+    check((out_dir / "ae_accuracy.csv").is_file() and (out_dir / "ae_accuracy_fit.csv").is_file(),
+          "fedsem_autoencoder: its CSVs were not written")
+    out["examples"]["fedsem_autoencoder"] = dict(
+        wall_s=time.perf_counter() - t0, launches=kernel.launches - before,
+        fit=[float(fit.a), float(fit.b)], rows=ae_rows)
+    for name, ex in out["examples"].items():
+        check(ex["launches"] >= 1, f"{name}: the objective kernel never launched")
+        print(f"paper[{name}]: {ex['wall_s']:.2f} s, {ex['launches']} objective-kernel launches",
+              flush=True)
+    launches = only_objective_launched("the paper path")    # ... and ends here
+
+    # fig4's sweep with the plain scoring: identical X, P and rho
+    w = common.weights(device=device)
+    sweep = common.sample_sweep(0, [{"p_max_dbm": p} for p in fig4_pmax.PMAX_DBM[1::2]],
+                                device=device)
+    main = [a.alloc for d, m, a in seen if d == "fig4_pmax" and m == "proposed"]
+    check(len(main) == 2, f"fig4_pmax: {len(main)} Alg. A2 solves, not 2")
+    before = kernel.launches
+    for inner, on in zip(("sca", "pgd"), main):
+        off, _ = common.solve_proposed(sweep, w, inner, device=device,
+                                       allocator=cut._replace(use_kernel_objective=False))
+        for leaf in ("X", "P", "rho"):
+            check(torch.equal(getattr(off.alloc, leaf), getattr(on, leaf)),
+                  f"fig4_pmax[{inner}]: use_kernel_objective=False changes {leaf}")
+    check(kernel.launches == before, "the plain scoring path launched the kernel")
+    print("paper[fig4_pmax] use_kernel_objective=False: identical X, P, rho (sca, pgd)", flush=True)
+    print(f"paper reduced: {PAPER_REDUCED}", flush=True)
+    out["launches"] = launches
+    return out, launches
+
+
 def fmt(xs) -> str:
     return "[" + ", ".join(f"{x:.5g}" for x in xs) + "]"
 
@@ -3004,9 +3161,13 @@ def main() -> int:
     # phase 20: Arctic-480B and DeepSeek-V3 (MoE and MLA) at their published widths
     moe_models, moe_launches = timed("20", phase_moe, device)
     paths.update(moe_launches)
+
+    # phase 21: the paper's figure and table drivers and the three examples
+    paper, paper_launches = timed("21", phase_paper, device)
     objective_by_path = {"solve_batch": launches, "families": families_launches,
                          "exhaustive": oracle_launches, "serving": serving_launches,
-                         "fedsem": fedsem_launches, "federated_lm": fedlm_launches}
+                         "fedsem": fedsem_launches, "federated_lm": fedlm_launches,
+                         "paper": paper_launches}
 
     trace_case = next(c for c in cases if c["shape"] == [48, 1, 10] and not c["check_feasible"])
     main_flash = next(c for c in flash_cases if c["case"] == "gemma2_2b global")
@@ -3078,13 +3239,14 @@ def main() -> int:
                  profile=profiled, flash_cases=flash_cases, lm=lm, wkv_cases=wkv_cases, rwkv=rwkv,
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
                  oracle=oracle, serving=serving, fedsem=fedsem, training=training,
-                 federated_lm=fedlm, models=models, moe_models=moe_models, record=record,
+                 federated_lm=fedlm, models=models, moe_models=moe_models, paper=paper,
+                 record=record,
                  card=smi, phase_s=phase_s, script_s=time.perf_counter() - t_script),
             indent=1, default=str))
     import torch.distributed as dist
 
     dist.destroy_process_group()
-    print(f"chip_smoke: all 20 phases passed in {time.perf_counter() - t_script:.2f} s", flush=True)
+    print(f"chip_smoke: all 21 phases passed in {time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Counterpart of `repro.core.accuracy`: the paper's YOLOv5/COCO fit
 ``A(rho) = 0.6356 * rho**0.4025`` as a power law with runtime coefficients,
-and `fit_power_law`, the least-squares refit a `fl.SemComJob` makes from its
+Fig. 8b's YOLOv3 curve, and `fit_power_law`, the least-squares refit a `fl.SemComJob` makes from its
 own measurements.
 """
 from __future__ import annotations
@@ -38,6 +38,16 @@ def default_accuracy(device=None) -> AccuracyFn:
     return AccuracyFn(
         torch.tensor(0.6356, dtype=torch.float32, device=device),
         torch.tensor(0.4025, dtype=torch.float32, device=device),
+    )
+
+
+def yolov3_accuracy(device=None) -> AccuracyFn:
+    """The second curve of the paper's Fig. 8b (YOLOv3): A(rho) = 0.55
+    rho^0.45, the reference's stand-in of the same concavity class (the
+    paper does not print its coefficients)."""
+    return AccuracyFn(
+        torch.tensor(0.55, dtype=torch.float32, device=device),
+        torch.tensor(0.45, dtype=torch.float32, device=device),
     )
 
 

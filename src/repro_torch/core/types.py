@@ -25,6 +25,10 @@ def dbm_to_watt(dbm, device=None):
     return 10.0 ** ((torch.as_tensor(dbm, dtype=torch.float32, device=device) - 30.0) / 10.0)
 
 
+def db_to_linear(db, device=None):
+    return 10.0 ** (torch.as_tensor(db, dtype=torch.float32, device=device) / 10.0)
+
+
 #: the leaves of a tree
 ARRAYS = (torch.Tensor, np.ndarray)
 
