@@ -10,8 +10,9 @@ the CPU in place of the card):
    `flash_attention`, `rwkv6_scan`, `mamba_scan`) from the sources in this
    checkout, one nvcc (sm_90a) each, all at once, and print ptxas' report;
    the flash library's bf16 kernel (one instantiation per head dim; hd 80's
-   at width 128) must hold `HGMMA` (wgmma) instructions in its SASS
-   (`cuobjdump -sass`); the WKV6, selective-scan and flash kernels'
+   at width 128) must hold BF16 `HGMMA` (wgmma) instructions in its SASS
+   (`cuobjdump -sass`), and its float32 kernel (one per head dim, hd 80 at
+   its own width) TF32 ones; the WKV6, selective-scan and flash kernels'
    registers are printed, and no instantiation of any may spill;
 2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
@@ -25,19 +26,20 @@ the CPU in place of the card):
    CUDA graph and replayed) beside its memory bound, and per eager call;
 3. the slice: draw 16 Table-I scenarios (N = 10, K = 50, `iid_rayleigh`) on
    the card and run `solve_batch` under ``AllocatorConfig(inner="pgd")``
-   (the serving config) and the default ``AllocatorConfig()`` (SCA). Every
+   (the serving config) and the default ``AllocatorConfig()`` (SCA) cut to
+   `cut_configs()` depth (`SCA_REDUCED`). Every
    leaf must be finite, each hardened X binary with every subcarrier owned
    once and every device owning one, every scenario feasible, the kernel
    launched at least ``outer_iters + 1`` times per solve, and
    ``use_kernel_objective=False`` must give the identical X, P and rho
    (each config's twin at cut depth against a kernel solve at that depth,
-   `TWIN_REDUCED`). A small input solved on the card and on the CPU must
+   SCA's the main path's, `TWIN_REDUCED`). A small input solved on the card and on the CPU must
    give the same X.
 
 4. build check of the flash-attention kernel of
    `repro_torch.kernels.flash_attention` against its plain version (the
    chunked attention of `repro_torch.models.attention`) on the card: float32
-   (the CUDA-core kernel) and bfloat16 (the tensor-core kernel); MHA, GQA,
+   (3xTF32 on the tensor cores) and bfloat16 (bf16 on them); MHA, GQA,
    MQA; S not a block multiple; window; softcap; non-causal; hd 256; the
    Gemma-2 2B layer shapes (B = 1, S = 8192, H 8, KV 4, hd 256, bf16; global
    and window 4096, softcap 50), the Qwen2.5-3B shape (H 16, KV 2, hd 128)
@@ -45,10 +47,12 @@ the CPU in place of the card):
    bf16), phase 20's Arctic-480B layer (S = 4096, H 56, KV 8, hd 128,
    bf16), and phase 19's layers: HuBERT X-Large's (B 4, S 1500, H 16, KV
    16, hd 80, bidirectional; bf16 and float32: hd 80 runs at width 128 in
-   bf16 and 96 in float32, and that design's own floor, 128/80 of the
-   operations, is printed beside the bound), StarCoder2-3B's (S 8192, H 24,
-   KV 2, hd 128), Pixtral-12B's (S 8192, H 32, KV 8, hd 128) and Gemma-2
-   9B's (S 8192, H 16, KV 8, hd 256, softcap 50; global and window 4096).
+   bf16, and that design's own floor, 128/80 of the operations, is printed
+   beside the bound; float32 runs it at width 80), StarCoder2-3B's (S 8192,
+   H 24, KV 2, hd 128; bf16 and float32), Pixtral-12B's (S 8192, H 32, KV
+   8, hd 128), Gemma-2 9B's (S 8192, H 16, KV 8, hd 256, softcap 50; global
+   and window 4096) and Gemma-2 2B's global layer in float32, the float32
+   yardsticks' widest.
    Tolerance, absolute plus relative: float32 the JAX tests' own
    2e-5; bfloat16 one bf16 ulp (rtol 2**-7, atol 1e-4): the plain version
    keeps the probabilities P in float32 for P V, and the bf16 kernel keeps
@@ -58,11 +62,13 @@ the CPU in place of the card):
    on the device (CUDA-graph replay) beside its bound, with the plain
    version and one PyTorch call that computes the same function:
    `scaled_dot_product_attention` without a softcap, compiled
-   `flex_attention` with the softcap as its score_mod; each bf16 case prints
+   `flex_attention` with the softcap as its score_mod; each case prints
    the share of the bound the kernel reaches and its factor against that
-   call. The call is held to the JAX tests' tolerance; whether it also
-   stays within the kernel's one-ulp gate is recorded, not required (it
-   rounds P to bf16);
+   call (a float32 case's bound is 3xTF32's, 12 hd operations a pair at
+   495 TFLOP/s, and the CUDA cores' 4 hd at 67 is printed beside it). The
+   call is held to the JAX tests' tolerance; whether it also stays within
+   the kernel's one-ulp gate is recorded, not required (it rounds P to
+   bf16);
 5. the LM slice: `gemma2_2b` at full width in bfloat16 on the card from a
    seeded `torch.Generator`; `prefill(use_kernel=True)` on B = 1, S = 8192
    tokens must launch the kernel once per layer (26) and give finite logits.
@@ -78,7 +84,9 @@ the CPU in place of the card):
    its first positions, so a fixed logit tolerance would fail the plain
    version against itself). One more warm kernel prefill runs under
    `torch.profiler`: the kernel's device time and launches in the trace,
-   the matrix products' device time and the device's busy time. Then the
+   the matrix products' device time and the device's busy time; so does one
+   more warm float32 kernel prefill (the float32 kernel's launches and its
+   share of busy time; phase 5 only). Then the
    mesh path (`mesh_path`): the same warm parameters placed on a (1, 1)
    ("data", "model") mesh of this card (`launch.mesh.open_mesh`, a
    one-process nccl group), as DTensors whose local tensors are the
@@ -203,10 +211,10 @@ the CPU in place of the card):
 16. the FedSem closed loop (`repro_torch.launch.fedsem_e2e`) on the card
    at the reference's full harness (`harness_config(smoke=False)`: jobs
    `hetero_classes` (4, 12), `gauss_markov` (4, 12) and `iid_rayleigh`
-   (6, 16), 6 rounds, `AEConfig(image_size=32, hidden=8, base_latent=8)`,
-   batch 8, eval batch 16, max_batch 4, max_wait 20 ms), the allocator cut
-   to the reference's smoke allocator (2 outer iterations, 60 PGD steps;
-   `FEDSEM_REDUCED`). Gates: the four e2e gates (ServiceBackend's X equals
+   (6, 16), `AEConfig(image_size=32, hidden=8, base_latent=8)`, batch 8,
+   eval batch 16, max_batch 4, max_wait 20 ms), cut to the smoke harness's
+   3 rounds a job (`FEDSEM_ROUNDS`) and the allocator to the reference's
+   smoke allocator (2 outer iterations, 60 PGD steps; `FEDSEM_REDUCED`). Gates: the four e2e gates (ServiceBackend's X equals
    PlannedBackend's exactly, rho within 1e-6; an applied, monotone refit;
    every job complete; each job's solo re-run equal to its co-tenanted run
    exactly); the objective kernel launched exactly 3 times per
@@ -358,6 +366,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+TF32_FLOPS_PER_S = 495e12        # H100 SXM TF32 dense tensor cores
 #: phase 4's (atol, rtol) of the kernel against its plain version: float32 the
 #: JAX tests' 2e-5 (tests/test_kernels.py), bfloat16 one ulp of the output
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-4, 2**-7)}
@@ -421,6 +430,9 @@ KERNEL_OF_KIND = {"attn": "flash_attention", "attn_local": "flash_attention",
                   "rwkv": "rwkv6_scan", "mamba": "mamba_scan"}
 #: what marks a matrix product's kernel in a trace (cuBLAS and CUTLASS names)
 PRODUCT_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
+#: the LM path whose float32 kernel prefill is profiled too (phase 5): the
+#: float32 kernel's launches and share of the device's busy time
+F32_PROFILE_ARCH = "gemma2_2b"
 #: the LM paths: (arch, prefill length, the cut of its config, the
 #: yardsticks' cut or None for the same model; cuts as `ModelConfig.scaled`
 #: arguments)
@@ -503,13 +515,17 @@ SERVE_RATE_HZ = 20.0
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S = 8, 0.05
 #: the real-clock driver's drain bound (a flush takes about 3 s)
 SERVE_TIMEOUT_S = 900.0
-#: phase 3's cut: each config's plain-scoring twin (about 50 s for SCA's and
-#: 23 s for PGD's at default depth) runs at `cut_configs()` depth, against a
-#: kernel solve at that depth; both main-path solves keep their depth
-TWIN_REDUCED = ("the plain-scoring twins: AllocatorConfig(inner='pgd') -> cut_configs()['pgd'] "
-                "(1 outer iteration, 100 PGD steps), AllocatorConfig() -> cut_configs()['sca'] "
-                "(1 outer iteration, P5 1 x 100, 100 PGD steps), each held for identical X, P and "
-                "rho against a kernel solve at that depth: with the SCA twin at default depth "
+#: phase 3's cuts: the SCA solve runs at `cut_configs()` depth (53-81 s at
+#: default depth), and the PGD solve's plain-scoring twin (about 23 s at
+#: default depth) too, against a kernel solve at that depth; the PGD
+#: main-path solve keeps its depth
+SCA_REDUCED = ("allocator depth: AllocatorConfig() -> cut_configs()['sca'] (1 outer iteration, "
+               "P5 1 x 100, 100 PGD steps): at default depth it took 53-81 s on an NVIDIA H100 "
+               "80GB HBM3, host to host, and chip_smoke.py ran past its 1200 s limit")
+TWIN_REDUCED = ("the plain-scoring twins at cut depth: AllocatorConfig(inner='pgd') -> "
+                "cut_configs()['pgd'] (1 outer iteration, 100 PGD steps), held for identical X, P "
+                "and rho against a kernel solve at that depth; SCA's against its main-path solve, "
+                "which runs at cut depth (SCA_REDUCED): with the SCA twin at default depth "
                 "chip_smoke.py took 1214 s, past its 1200 s limit, on an NVIDIA H100 80GB HBM3 at "
                 "700 W")
 #: phases 13 and 15: the allocator's depth, cut to the reference's smoke
@@ -524,12 +540,17 @@ SERVE_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference
                  "allocator, AllocatorConfig(inner='pgd', outer_iters=2, "
                  "pgd=PGDConfig(steps=60)): at default depth a cold flush took about 26 s and "
                  "the phase about 280 s")
-#: phase 16: `fedsem_e2e`'s seed, and its cut
+#: phase 16: `fedsem_e2e`'s seed, and its cuts: the allocator's depth, and
+#: the FL rounds a job (about 33 s of the phase a round on an NVIDIA H100
+#: 80GB HBM3, 50 s on a slower host)
 FEDSEM_SEED = 0
+FEDSEM_ROUNDS = 3
 FEDSEM_REDUCED = ("allocator depth: AllocatorConfig(inner='pgd') -> the reference's smoke "
                   "allocator, AllocatorConfig(inner='pgd', outer_iters=2, "
                   "pgd=PGDConfig(steps=60)); about 50 allocations at default depth would take "
-                  "about 18 s each")
+                  "about 18 s each; FL rounds a job: the full harness's 6 -> 3, the reference's "
+                  "smoke harness's: with 6 the phase took 200-300 s and chip_smoke.py ran past its "
+                  "1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W")
 
 #: phase 17: the full-width training run (`launch.train`'s defaults: B 8,
 #: S 128, lr 1e-3, clip 1.0), and the smoke variants trained beside it
@@ -687,28 +708,39 @@ def bound(B, G, N, check_feasible):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: each flash kernel's symbol in the SASS (its head dim the template
+#: argument caught) and the tensor-core instruction its products must be
+FLASH_SASS = {"bfloat16": (r"flash_fwd_kernel_sm90ILi\d+ELi(\d+)E", ".BF16"),
+              "float32": (r"flash_fwd_kernel_f32_sm90ILi(\d+)E", ".TF32")}
+
+
 def flash_tensor_core_sass(lib_path) -> dict:
-    """Phase 1's proof that the bf16 flash kernel runs on the tensor cores:
-    the `HGMMA` (wgmma) instructions in the SASS (``cuobjdump -sass``) of
-    each instantiation of its `flash_fwd_kernel_sm90` (one per head dim: the
-    template's second argument). Returns {hd: count}."""
+    """Phase 1's proof that both flash kernels run on the tensor cores: the
+    `HGMMA` (wgmma) instructions in the SASS (``cuobjdump -sass``) of each
+    instantiation (one per head dim) of the bf16 `flash_fwd_kernel_sm90`,
+    BF16 ones, and of the float32 `flash_fwd_kernel_f32_sm90`, TF32 ones.
+    Returns {dtype: {hd: count}}."""
     from repro_torch.kernels.build import nvcc
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     tool = pathlib.Path(nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, hd = {}, None
+    counts, at = {dt: {} for dt in FLASH_SASS}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"flash_fwd_kernel_sm90ILi\d+ELi(\d+)E", line)
-            hd = int(found.group(1)) if found else None
-            if hd is not None:
-                counts[hd] = 0
-        elif hd is not None and "HGMMA" in line:
-            counts[hd] += 1
-    check(sorted(counts) == sorted(HEAD_DIMS) and all(counts.values()),
-          f"flash: the bf16 kernel's SASS lacks HGMMA at some head dim: {counts}")
+            at = None
+            for dt, (symbol, _) in FLASH_SASS.items():
+                found = re.search(symbol, line)
+                if found:
+                    at = (dt, int(found.group(1)))
+                    counts[dt][at[1]] = 0
+        elif at is not None and "HGMMA" in line and FLASH_SASS[at[0]][1] in line:
+            counts[at[0]][at[1]] += 1
+    for dt, by_hd in counts.items():
+        check(sorted(by_hd) == sorted(HEAD_DIMS) and all(by_hd.values()),
+              f"flash: the {dt} kernel's SASS lacks {FLASH_SASS[dt][1][1:]} HGMMA at some head "
+              f"dim: {by_hd}")
     return counts
 
 
@@ -812,7 +844,7 @@ def phase_slice(device):
     params = fam.sample_batch(0, 16, N=10, K=50, device=device)
     check(params.g.is_cuda and params.g.shape == (16, 10, 50), "scenarios not drawn on the card")
     w = Weights.ones(device)
-    configs = {"pgd": AllocatorConfig(inner="pgd"), "sca": AllocatorConfig()}
+    configs = {"pgd": AllocatorConfig(inner="pgd"), "sca": cut_configs()["sca"]}   # `SCA_REDUCED`
 
     solves = {}
     zero_launches()                          # the allocator path starts here
@@ -829,16 +861,21 @@ def phase_slice(device):
               f"solve_batch[{name}]: {n} kernel launches < outer_iters + 1 = {cfg.outer_iters + 1}")
         solves[name] = dict(res=res, wall_s=wall, launches=n)
         print(f"solve_batch[{name}] B=16 N=10 K=50: {wall:.3f} s wall, {n} kernel launches", flush=True)
+    solves["sca"]["reduced"] = SCA_REDUCED
+    print(f"solve_batch[sca] reduced: {SCA_REDUCED}", flush=True)
     main_path_launches = only_objective_launched("the allocator path")    # ... and ends here
 
     # the plain-scoring twins at cut depth (`TWIN_REDUCED`), each against a
-    # kernel solve at that depth, whose launches are a comparison's, not the
-    # path's
+    # kernel solve at that depth (the main path's where it ran there),
+    # whose launches are a comparison's, not the path's
     compare_launches = 0
     for name, cfg in cut_configs().items():
-        before = kernel.launches
-        on = solve_batch(params, w, cfg).alloc
-        compare_launches += kernel.launches - before
+        if cfg == configs[name]:
+            on = solves[name]["res"].alloc
+        else:
+            before = kernel.launches
+            on = solve_batch(params, w, cfg).alloc
+            compare_launches += kernel.launches - before
         solves[name]["plain_scoring_reduced"] = TWIN_REDUCED
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -936,18 +973,27 @@ def attention_pairs(S: int, causal: bool, window) -> int:
     return total
 
 
-def flash_bound(B, S, H, KV, hd, dtype, causal, window, op_hd=None):
-    """(ms, 'bytes'|'operations'): 4 * hd operations per unmasked pair and
-    head over the peak of the input type (bf16 tensor cores; float32 outside
-    them), against q, k, v read once and the output written once. With
-    ``op_hd`` the operations are counted at that head dim (a padded
-    design's own floor)."""
+def flash_bound(B, S, H, KV, hd, dtype, causal, window, op_hd=None, cuda_cores=False):
+    """(ms, 'bytes'|'operations'): the least time that meets the type's
+    gate: q, k, v read once and the output written once, against the
+    operations per unmasked pair and head on the tensor cores: bf16 4 * hd
+    at 989 TFLOP/s; float32 12 * hd at TF32's 495 (three TF32 products:
+    one misses the float32 gate, tests/test_torch_flash_attention.py's
+    test_f32_kernel_needs_three_tf32_products), or with ``cuda_cores`` 4 *
+    hd at the CUDA cores' 67 (a float32 FMA design's bound). With
+    ``op_hd`` the operations are counted at that head dim (a padded design's
+    own floor)."""
     import torch
 
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = item * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    flops = 4 * (op_hd or hd) * B * H * attention_pairs(S, causal, window)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    pairs = B * H * attention_pairs(S, causal, window)
+    if dtype == torch.bfloat16:
+        flops, peak = 4 * (op_hd or hd) * pairs, BF16_FLOPS_PER_S
+    elif cuda_cores:
+        flops, peak = 4 * (op_hd or hd) * pairs, FP32_FLOPS_PER_S
+    else:
+        flops, peak = 12 * (op_hd or hd) * pairs, TF32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -967,11 +1013,14 @@ FLASH_CASES = [
     ("qwen2_5_3b", (1, 8192, 16, 2, 128), "bfloat16", True, None, None),
     ("jamba_1_5_large_398b attn", (1, 4096, 64, 8, 128), "bfloat16", True, None, None),
     ("arctic_480b attn", (1, 4096, 56, 8, 128), "bfloat16", True, None, None),   # phase 20
-    # phase 19's layers: HuBERT's (bidirectional, hd 80 at a padded width,
-    # 30 s of 50 Hz frames: the last 128-row block ragged)
+    # phase 19's layers: HuBERT's (bidirectional, hd 80 at a padded width in
+    # bf16, 30 s of 50 Hz frames: the last 128-row block ragged)
     ("hubert_xlarge", (4, 1500, 16, 16, 80), "bfloat16", False, None, None),
     ("hubert_xlarge float32", (4, 1500, 16, 16, 80), "float32", False, None, None),
     ("starcoder2_3b", (1, 8192, 24, 2, 128), "bfloat16", True, None, None),
+    # the float32 yardsticks' full-width layers (phases 5 and 19)
+    ("starcoder2_3b float32", (1, 8192, 24, 2, 128), "float32", True, None, None),
+    ("gemma2_2b global float32", (1, 8192, 8, 4, 256), "float32", True, None, 50.0),
     ("pixtral_12b", (1, 8192, 32, 8, 128), "bfloat16", True, None, None),
     ("gemma2_9b global", (1, 8192, 16, 8, 256), "bfloat16", True, None, 50.0),
     ("gemma2_9b local", (1, 8192, 16, 8, 256), "bfloat16", True, 4096, 50.0),
@@ -1056,6 +1105,9 @@ def phase_flash(device):
         rec["bound_ms"], rec["bound_by"] = flash_bound(B, S, H, KV, hd, dtype, causal, window)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["library_factor"] = rec["ms"] / rec["library_ms"]
+        if dtype == torch.float32:                        # the CUDA-core design's bound, beside
+            rec["fp32_core_bound_ms"], _ = flash_bound(B, S, H, KV, hd, dtype, causal, window,
+                                                       cuda_cores=True)
         width = kernel.instantiated_hd(hd, dtype)
         if width != hd:                                   # the padded design's own floor
             rec["padded_width"] = width
@@ -1075,6 +1127,12 @@ def phase_flash(device):
                   f"{rec['library_factor']:.3f}x {library}; {library} "
                   f"{'within' if lib_gate <= 1.0 else 'outside'} the one-ulp gate "
                   f"({lib_gate:.3g} of it)", flush=True)
+        else:
+            print(f"flash[{name}] float32: {100 * rec['bound_share']:.2f}% of the 3xTF32 bound, "
+                  f"{100 * rec['fp32_core_bound_ms'] / rec['ms']:.2f}% of the CUDA cores' "
+                  f"{rec['fp32_core_bound_ms']:.5f} ms (fp32_core_bound_ms), "
+                  f"{rec['library_factor']:.3f}x {library}; {library} at "
+                  f"{lib_gate:.3g} of the float32 gate", flush=True)
     torch.cuda.synchronize()
     return cases
 
@@ -1492,6 +1550,20 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None, mesh=None):
     cfg32 = cfg.scaled(dtype="float32")
     params32 = M.init_params(cfg32, torch.Generator(device=device).manual_seed(seed))
     sub_fk = run(params32, cfg32, True, "float32_kernel_s")
+    prof32 = None
+    if arch == F32_PROFILE_ARCH:                          # a second, warm float32 kernel prefill
+        prof32 = profile_prefill(M, params32, cfg32, batch,
+                                 {name: want[name] for name in KERNEL_SYMBOLS})
+        busy32 = prof32["device_busy_ms"]
+        print(f"{arch} float32 warm kernel prefill, profiled ({prof32['wall_profiled_s']:.3f} s "
+              f"wall): device busy {busy32:.2f} ms; " + "; ".join(
+                  f"{prof32['kernel_launches'][name]} {name} launches "
+                  f"{prof32['kernel_device_ms'][name]:.3f} ms = "
+                  f"{100 * prof32['kernel_device_ms'][name] / busy32:.2f}% of busy"
+                  for name in mine) + f"; matrix products {prof32['products_device_ms']:.3f} ms "
+              f"= {100 * prof32['products_device_ms'] / busy32:.2f}% of busy", flush=True)
+        for key, ms, count in prof32["top"]:
+            print(f"  {ms:9.3f} ms  x{count:<6d} {key[:100]}")
     t0 = time.perf_counter()
     sub_f, layer_gaps = layer_by_layer(M, params32, cfg32, batch, rows)
     torch.cuda.synchronize()
@@ -1531,7 +1603,7 @@ def phase_lm(device, arch, S, cut, B=1, yard_cut=None, checks=None, mesh=None):
           f"{LM_F32_ULP_FACTOR} x a one-ulp {moved} perturbation's {gap_ulp}")
     report = dict(arch=arch, cut=cut, yard_cut=yard_cut, batch=B, tokens=S, params=n_params,
                   init_s=init_s, prefill_first_s=prefill_s, **timed,
-                  prefill_launches=prefill_launches, profile=prof,
+                  prefill_launches=prefill_launches, profile=prof, profile_float32=prof32,
                   kernel_share_of_warm_prefill={name: prof["kernel_device_ms"][name] / warm_ms
                                                 for name in mine},
                   gap_kernel_plain=gap_kp, gap_plain_float32=gap_pf, gap_kernel_float32=gap_kf,
@@ -2056,9 +2128,10 @@ def serve_once(svc, requests):
 
 
 def profile_flush(svc, requests) -> dict:
-    """One cold flush (solvers already called once) under `torch.profiler`:
-    the device's busy time and the objective kernel's."""
-    with device_profile() as prof:
+    """One cold flush (solvers already called once) under `torch.profiler`
+    (device activity only: the host's trace of a flush is slow to read
+    back): the device's busy time and the objective kernel's."""
+    with device_profile(cpu=False) as prof:
         done, solve_s = serve_once(svc, requests)
     on_dev = device_rows(prof)
     busy_s = sum(e.self_device_time_total for e in on_dev) / 1e6
@@ -2317,7 +2390,8 @@ def profile_round(job, backend_of, seed: int) -> dict:
 
 def phase_fedsem(device):
     """Phase 16: `repro_torch.launch.fedsem_e2e`'s four phases at the
-    reference's full harness, the allocator cut to its smoke depth; every
+    reference's full harness, cut to `FEDSEM_ROUNDS` rounds and the
+    allocator to its smoke depth; every
     allocation's launches counted; the sharding pass; one round profiled;
     the kernel at the phase's launch shapes."""
     import collections
@@ -2331,7 +2405,8 @@ def phase_fedsem(device):
     from repro_torch.serve import AllocService
     from repro_torch.serve import service as service_mod
 
-    _, serve_cfg, specs, rounds, ae, batch, eval_batch = e2e.harness_config(smoke=False)
+    _, serve_cfg, specs, rounds, ae, batch, eval_batch = e2e.harness_config(
+        smoke=False, rounds=FEDSEM_ROUNDS)
     cut = e2e.SMOKE_ALLOCATOR
     serve_cfg = serve_cfg._replace(allocator=cut)
     per_solve = cut.outer_iters + 1               # the trace entries and the selection
@@ -3091,8 +3166,9 @@ def main() -> int:
               f"stack; spills: {spills or 'none'}", flush=True)
         check(not spills, f"{name}: ptxas spills registers: {spills}")
     flash_sass = flash_tensor_core_sass(built[all_kernels.index(flash_kernel)][0])
-    print("flash bf16 kernel (flash_fwd_kernel_sm90) SASS: "
-          + ", ".join(f"hd {hd}: {n} HGMMA" for hd, n in sorted(flash_sass.items())), flush=True)
+    for dt, by_hd in flash_sass.items():
+        print(f"flash {dt} kernel SASS: " + ", ".join(
+            f"hd {hd}: {n} HGMMA{FLASH_SASS[dt][1]}" for hd, n in sorted(by_hd.items())), flush=True)
     phase_s["1"] = time.perf_counter() - t0
     print(f"phase 1: {phase_s['1']:.2f} s", flush=True)
 

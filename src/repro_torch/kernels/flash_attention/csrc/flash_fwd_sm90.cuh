@@ -324,6 +324,7 @@ int launch(const void* q, const void* k, const void* v, const long long* sq, con
                                          static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(p.H, (p.S + BQ - 1) / BQ, B);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }

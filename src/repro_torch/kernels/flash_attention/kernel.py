@@ -1,9 +1,9 @@
 """Build, bind and launch the CUDA flash-attention kernel.
 
 ``csrc/flash_attention.cu`` (its header says what it replaces, what bounds
-it and how it is laid out: bfloat16 on the tensor cores, float32 on the CUDA
-cores) is built with its headers by `repro_torch.kernels.build` at first
-use. Nothing is built when this module is imported.
+it and how it is laid out: bfloat16 and float32, as 3xTF32, both on the
+tensor cores) is built with its headers by `repro_torch.kernels.build` at
+first use. Nothing is built when this module is imported.
 
 This module only builds, binds and launches: `flash_attention` takes CUDA
 tensors and raises on anything else or on a failed launch. It launches with
@@ -29,9 +29,12 @@ NVCC_FLAGS = BASE_FLAGS
 #: head dims the kernel takes
 HEAD_DIMS = (32, 64, 80, 128, 256)
 #: a head dim whose instantiation works at a greater width, by type: hd 80
-#: at 128 in the bf16 kernel (TMA fills the columns past 80 with zeros) and
-#: at 96 in the float32 kernel (masked loads and stores)
-PADDED = {torch.bfloat16: {80: 128}, torch.float32: {80: 96}}
+#: at 128 in the bf16 kernel (TMA fills the columns past 80 with zeros). The
+#: float32 kernel (3xTF32: three TF32 products for each float32 one, 12 * hd
+#: tensor-core operations a pair) runs hd 80 at its own width: 8-deep steps
+#: of Q K^T and wgmma n80 for P V; only its TMA slabs are 96 columns wide,
+#: columns 80-95 zeros that are never multiplied
+PADDED = {torch.bfloat16: {80: 128}, torch.float32: {}}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -68,12 +71,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """Attention of q (B, S, H, hd) over k/v (B, S, KV, hd) -> (B, S, H, hd).
 
     Float32 or bfloat16 CUDA tensors of one type on one card, the head dim
-    contiguous, hd in `HEAD_DIMS` (80 at a greater width, `PADDED`), H a
-    multiple of KV. bfloat16 goes to the
-    tensor-core kernel, whose TMA loads want each of q, k, v to start on 16
-    bytes and its (batch, seq, head) strides to be multiples of 8 elements,
-    and at most 65535 blocks of 128 query rows; anything else raises (nothing
-    falls back to the float32 kernel or the plain version). Keys at positions
+    contiguous, hd in `HEAD_DIMS` (bf16's 80 at a greater width, `PADDED`), H
+    a multiple of KV. Both types go to tensor-core kernels (float32 as
+    3xTF32) whose TMA loads want each of q, k, v to start on 16 bytes and its
+    (batch, seq, head) strides to be multiples of 16 bytes (8 bf16 or 4
+    float32 elements), and at most 65535 blocks of query rows (the launcher,
+    which knows a block's rows, refuses more); anything else raises (nothing
+    falls back to another kernel or to the plain version). Keys at positions
     > the query's are masked if ``causal``, and at qpos - kpos >= ``window``
     if a window is given; ``cap`` is the softcap of the scores. Forward only:
     an input that requires grad under grad mode raises (`refuse_autograd`).
@@ -112,14 +116,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])):
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(x % per16 for x in t.stride()[:3]):
+            kind = "bf16" if q.dtype == torch.bfloat16 else "float32"
             raise ValueError(
-                f"flash_attention kernel: bf16 {name} must start on 16 bytes with (batch, seq, "
-                f"head) strides multiples of 8 elements for the tensor-core kernel's TMA loads, "
-                f"got address % 16 = {t.data_ptr() % 16}, strides {t.stride()[:3]}"
+                f"flash_attention kernel: {kind} {name} must start on 16 bytes with (batch, seq, "
+                f"head) strides multiples of {per16} elements for the tensor-core kernel's TMA "
+                f"loads, got address % 16 = {t.data_ptr() % 16}, strides {t.stride()[:3]}"
             )
-    if q.dtype == torch.bfloat16 and -(-S // 128) > 65535:
-        raise ValueError(f"flash_attention kernel: S={S} > 65535 blocks of 128 query rows")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

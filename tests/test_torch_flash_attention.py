@@ -23,6 +23,7 @@ from repro.kernels.flash_attention import ops as jops, ref as jref
 from repro.models.attention import flash_attention as jflash
 from repro_torch.kernels.flash_attention import kernel, ops, ref
 from repro_torch.models.attention import flash_attention as plain_flash
+from torch_port_util import tf32
 
 jax.config.update("jax_default_matmul_precision", "highest")
 torch.set_num_threads(1)
@@ -95,12 +96,12 @@ def test_flash_attention_head_dim_80_matches_pallas_interpret(causal, dtype):
     _close(got, jref.naive_attention(jq, jk, jv, causal=causal), dtype)
 
 
-@pytest.mark.parametrize("dtype, width", [("bfloat16", 128), ("float32", 96)])
+@pytest.mark.parametrize("dtype, width", [("bfloat16", 128)])
 def test_head_dim_80_at_a_greater_width_is_exact(dtype, width):
-    """The CUDA kernel runs hd 80 at width 128 (bf16) or 96 (float32), the
-    columns past 80 zero, at hd 80's scale: in plain
-    PyTorch that padding leaves the scores and the first 80 output columns
-    bit for bit as they are, and the padded columns zero."""
+    """The bf16 CUDA kernel runs hd 80 at width 128, the columns past 80
+    zero, at hd 80's scale: in plain PyTorch that padding leaves the scores
+    and the first 80 output columns bit for bit as they are, and the padded
+    columns zero. (The float32 kernel runs hd 80 at its own width.)"""
     assert kernel.instantiated_hd(80, getattr(torch, dtype)) == width
     _, (q, k, v) = _qkv(8, 1, 150, 2, 2, 80, dtype)
     pad = lambda x: torch.nn.functional.pad(x.float().transpose(1, 2), (0, width - 80))
@@ -137,6 +138,10 @@ def test_widths_are_the_librarys_dispatch(dtype, source):
              re.findall(r"case (\d+): return launch<(?:T, )?(\d+)[,>]", switch)}
     assert tuple(cases) == kernel.HEAD_DIMS
     assert cases == {hd: kernel.instantiated_hd(hd, getattr(torch, dtype)) for hd in cases}
+
+
+def test_float32_runs_head_dim_80_at_its_own_width():
+    assert kernel.instantiated_hd(80, torch.float32) == 80
 
 
 def test_chunked_flash_matches_reference_chunked():
@@ -238,3 +243,48 @@ def test_bf16_kernel_needs_p_split_into_two_bf16_terms(hd):
     once = (_p_rounded(q, k, v, cap=50.0, split=False).float() - want).abs() / lim
     assert float(split.max()) <= 1.0
     assert float(once.max()) > 4.0
+
+
+#: the float32 gate the CUDA kernel is held to on the card (`FLASH_TOL` in
+#: chip_smoke.py and tests/test_torch_kernels_cuda.py)
+F32_GATE = (2e-5, 2e-5)
+
+
+def _tf32_products(q, k, v, *, cap, three):
+    """The float32 kernel's products in plain PyTorch: causal scores and
+    softmax in float32, with Q K^T and P V each one TF32 product of the
+    operands rounded to tf32 or (``three``) three, A_hi B_hi + (A_hi B_lo +
+    A_lo B_hi) with A_lo = tf32(A - A_hi); tf32 products are exact in
+    float32, so only the sums are float32, as on the tensor cores."""
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    G = H // k.shape[2]
+    qf = q.transpose(1, 2)
+    kf, vf = (x.transpose(1, 2).repeat_interleave(G, 1) for x in (k, v))
+
+    def mm(a, b):
+        a_hi, b_hi = tf32(a), tf32(b)
+        if not three:
+            return a_hi @ b_hi
+        return a_hi @ b_hi + (a_hi @ tf32(b - b_hi) + tf32(a - a_hi) @ b_hi)
+
+    s = cap * torch.tanh(mm(qf, kf.transpose(-1, -2)) * kernel.scale_of(hd) / cap)
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return (mm(p, vf) / p.sum(-1, keepdim=True)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("hd", [80, 128, 256])
+def test_f32_kernel_needs_three_tf32_products(hd):
+    """Why the float32 kernel computes each product as three TF32 products
+    (12 hd tensor-core operations a pair instead of 4 hd): with the operands
+    rounded once to tf32 the output misses the float32 gate against the
+    plain version; split into hi and lo it stays far inside."""
+    _, (q, k, v) = _qkv(9, 1, 512, 4, 2, hd, "float32")
+    pos = torch.arange(512, dtype=torch.int32)
+    want = plain_flash(q, k, v, q_positions=pos, kv_positions=pos, causal=True, cap=50.0)
+    atol, rtol = F32_GATE
+    lim = atol + rtol * want.abs()
+    three = (_tf32_products(q, k, v, cap=50.0, three=True) - want).abs() / lim
+    once = (_tf32_products(q, k, v, cap=50.0, three=False) - want).abs() / lim
+    assert float(three.max()) <= 0.25
+    assert float(once.max()) > 1.0

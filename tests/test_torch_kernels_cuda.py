@@ -14,7 +14,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as f
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel, ops as scan_ops, ref as scan_ref
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel, ops as wkv_ops, ref as wkv_ref
 from repro_torch.models.attention import flash_attention as plain_flash
-from torch_port_util import assert_scores, grid_inputs
+from torch_port_util import assert_scores, grid_inputs, tf32
 
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
 
@@ -147,12 +147,26 @@ def test_flash_kernel_bf16_ragged_tiles(card, S, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [200, 1000])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+def test_flash_kernel_f32_ragged_tiles(card, S, hd):
+    """S not a multiple of the float32 kernel's query rows (128; 64 at hd
+    256) or its kv tiles (64 keys; 32 at hd 256), with GQA, at every head
+    dim: 3xTF32 on the tensor cores against the float32 gate."""
+    q, k, v = _qkv(card, 29, 2, S, 4, 2, hd, torch.float32)
+    got = flash_kernel.flash_attention(q, k, v, causal=True)
+    want = _plain(q, k, v, causal=True)
+    atol, rtol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
 @pytest.mark.parametrize("S", [77, 200, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_kernel_head_dim_80(card, causal, S, dtype):
     """HuBERT's head dim, at width 128 in the bf16 kernel (TMA zero-fills
-    columns 80-127) and 96 in the float32 kernel, with GQA
+    columns 80-127) and at its own width in the float32 kernel, with GQA
     and S ragged against every block size."""
     q, k, v = _qkv(card, 27, 2, S, 4, 2, 80, dtype)
     before = flash_kernel.launches
@@ -217,6 +231,66 @@ def test_flash_wrapper_refuses_bf16_views_tma_cannot_load(card):
     want = _plain(fused[..., 8:72].contiguous(), k.contiguous(), v.contiguous(), causal=True)
     atol, rtol = FLASH_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_f32_views_tma_cannot_load(card):
+    """The float32 kernel's TMA loads want 16-byte starts and strides too:
+    float32 views that break that raise instead of falling back."""
+    gen = torch.Generator(device=card).manual_seed(30)
+    fused = torch.randn((1, 64, 4, 68), generator=gen, device=card)
+    q = fused[..., 1:65]                                  # starts 4 bytes in
+    k = v = fused[:, :, :2, 4:68]
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_kernel.flash_attention(q, k, v)
+    flat = torch.randn((1, 64, 66), generator=gen, device=card)
+    odd = flat[..., :64].unsqueeze(2)                     # seq stride 66 elements
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_kernel.flash_attention(odd, odd, odd)
+    before = flash_kernel.launches
+    got = flash_kernel.flash_attention(fused[..., 4:68], k, v)   # aligned views run
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    want = _plain(fused[..., 4:68].contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    atol, rtol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_launcher_refuses_more_than_65535_row_blocks(card, dtype):
+    """Both launchers know their blocks' query rows (128 at hd 32) and
+    refuse a grid of more than 65535 of them, before anything runs."""
+    q = torch.empty((1, 65535 * 128 + 1, 1, 32), dtype=dtype, device=card)
+    before = flash_kernel.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        flash_kernel.flash_attention(q, q, q)
+    assert flash_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_tf32_tensor_core_sums_truncate(card):
+    """Why the float32 flash kernel sums Q K^T's small terms in their own
+    accumulator and P V a half tile at a time, adding each partial to its
+    float32 sum with FMAs: the TF32 tensor cores' float32 adds truncate.
+    Products of tf32 values are exact in float32, so only the sums round;
+    over 256 positive terms the tensor cores' sums fall more than 5 ulp
+    short of float64's on average, the CUDA cores' are unbiased."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    a = tf32(torch.rand((512, 256), generator=gen, device=card))
+    b = tf32(torch.rand((256, 512), generator=gen, device=card))
+    exact = a.double() @ b.double()
+    ulp = torch.finfo(torch.float32).eps * exact
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tensor_cores = a @ b
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cuda_cores = a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert float(((tensor_cores.double() - exact) / ulp).mean()) < -5.0
+    assert abs(float(((cuda_cores.double() - exact) / ulp).mean())) < 0.1
 
 
 # ---------------------------------------------------------------------------

@@ -105,3 +105,11 @@ def assert_scores(got, want):
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     finite = np.isfinite(want)
     np.testing.assert_allclose(got[finite], want[finite], rtol=RTOL, atol=ATOL)
+
+
+def tf32(x):
+    """``cvt.rna.tf32.f32`` in plain PyTorch: float32 x rounded to 10
+    mantissa bits, ties away from zero, by integer ops on its bits (the low
+    13 zero), as the float32 flash kernel splits its operands."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
