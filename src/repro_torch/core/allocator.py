@@ -32,11 +32,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from .accuracy import AccuracyFn, default_accuracy
 from .distribute import check_mesh, run_sharded
 from .p3 import solve_p3
 from .p5 import P5Config, r_min, solve_p5
-from .pgd import PGDConfig, power_given_x, solve_p4_pgd
+from .pgd import PGDConfig, _rows, power_given_x, solve_p4_pgd
 from .scoring import candidate_objectives, scenario_objective
 from .system import _col, device_rate, objective
 from .types import Allocation, SystemParams, Weights, tree_index, tree_map
@@ -136,21 +137,22 @@ def repair_rate_floor(params: SystemParams, P, X, rmin, iters: int = 30):
 
     Devices that cannot reach rmin even at Pmax are clamped to their budget.
     """
-    p_tot = torch.clamp_min(torch.sum(P, dim=-1), 1e-12)
-    s_cap = params.p_max / p_tot                       # max admissible scale
+    with spans.span("repair", rows=_rows(P)):
+        p_tot = torch.clamp_min(torch.sum(P, dim=-1), 1e-12)
+        s_cap = params.p_max / p_tot                       # max admissible scale
 
-    def rate_at(s):
-        return device_rate(params, P * s[..., None], X)
+        def rate_at(s):
+            return device_rate(params, P * s[..., None], X)
 
-    need = rate_at(torch.ones_like(p_tot)) < rmin
-    lo = torch.ones_like(p_tot)
-    hi = torch.clamp_min(s_cap, 1.0)
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        ok = rate_at(mid) >= rmin
-        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
-    s = torch.where(need, torch.minimum(hi, s_cap), 1.0)
-    return P * s[..., None]
+        need = rate_at(torch.ones_like(p_tot)) < rmin
+        lo = torch.ones_like(p_tot)
+        hi = torch.clamp_min(s_cap, 1.0)
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            ok = rate_at(mid) >= rmin
+            lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+        s = torch.where(need, torch.minimum(hi, s_cap), 1.0)
+        return P * s[..., None]
 
 
 def harden_x(X: torch.Tensor, N: int, K: int, dev_mask=None, sc_mask=None) -> torch.Tensor:
@@ -160,29 +162,30 @@ def harden_x(X: torch.Tensor, N: int, K: int, dev_mask=None, sc_mask=None) -> to
     unassigned, and ownership counts consider real subcarriers only. Ties go
     to the first index, as in the reference.
     """
-    lead = tuple(X.shape[:-2])
-    dev = X.device
-    if dev_mask is None:
-        dev_mask = torch.ones(lead + (N,), dtype=X.dtype, device=dev)
-    if sc_mask is None:
-        sc_mask = torch.ones(lead + (K,), dtype=X.dtype, device=dev)
-    sc_mask = torch.broadcast_to(sc_mask, lead + (K,))
-    dev_mask = torch.broadcast_to(dev_mask, lead + (N,))
-    assign = torch.argmax(
-        torch.where(dev_mask[..., :, None] > 0.0, X, -torch.inf), dim=-2
-    )                                                                    # (..., K)
-    for n in range(N):
-        counts = torch.zeros(lead + (N,), dtype=X.dtype, device=dev).scatter_add(
-            -1, assign, sc_mask
-        )                                                      # real subcarriers
-        need = (counts[..., n] < 0.5) & (dev_mask[..., n] > 0.0)
-        # only steal real subcarriers from devices that own more than one
-        donor_ok = (torch.gather(counts, -1, assign) > 1.5) & (sc_mask > 0.0)
-        score = torch.where(donor_ok, X[..., n, :], -torch.inf)
-        k_star = torch.argmax(score, dim=-1, keepdim=True)
-        assign = torch.where(need[..., None], assign.scatter(-1, k_star, n), assign)
-    onehot = assign[..., None, :] == torch.arange(N, device=dev)[:, None]
-    return onehot.to(X.dtype) * sc_mask[..., None, :]
+    with spans.span("harden_x"):
+        lead = tuple(X.shape[:-2])
+        dev = X.device
+        if dev_mask is None:
+            dev_mask = torch.ones(lead + (N,), dtype=X.dtype, device=dev)
+        if sc_mask is None:
+            sc_mask = torch.ones(lead + (K,), dtype=X.dtype, device=dev)
+        sc_mask = torch.broadcast_to(sc_mask, lead + (K,))
+        dev_mask = torch.broadcast_to(dev_mask, lead + (N,))
+        assign = torch.argmax(
+            torch.where(dev_mask[..., :, None] > 0.0, X, -torch.inf), dim=-2
+        )                                                                    # (..., K)
+        for n in range(N):
+            counts = torch.zeros(lead + (N,), dtype=X.dtype, device=dev).scatter_add(
+                -1, assign, sc_mask
+            )                                                      # real subcarriers
+            need = (counts[..., n] < 0.5) & (dev_mask[..., n] > 0.0)
+            # only steal real subcarriers from devices that own more than one
+            donor_ok = (torch.gather(counts, -1, assign) > 1.5) & (sc_mask > 0.0)
+            score = torch.where(donor_ok, X[..., n, :], -torch.inf)
+            k_star = torch.argmax(score, dim=-1, keepdim=True)
+            assign = torch.where(need[..., None], assign.scatter(-1, k_star, n), assign)
+        onehot = assign[..., None, :] == torch.arange(N, device=dev)[:, None]
+        return onehot.to(X.dtype) * sc_mask[..., None, :]
 
 
 def _solve_from(
@@ -197,11 +200,11 @@ def _solve_from(
     _, P, X = start
     trace = []
     for _ in range(cfg.outer_iters):
-        p3 = solve_p3(params, weights, P, X, acc)            # Step 1 (Theorem 1)
-        payload = params.D + _col(p3.rho) * params.C
-        rmin = r_min(params, p3.rho, p3.T, p3.f)
+        with spans.span("p3"):                               # Step 1 (Theorem 1)
+            p3, payload, rmin = _step1(params, weights, P, X, acc)
         if cfg.inner == "sca":                               # Step 2 (Alg. A1)
-            sol = solve_p5(params, weights, p3.rho, p3.T, p3.f, P, X, cfg.p5)
+            with spans.span("p5"):
+                sol = solve_p5(params, weights, p3.rho, p3.T, p3.f, P, X, cfg.p5)
             P_new, X_new = sol.P, sol.X
         else:
             P_new, X_new = solve_p4_pgd(
@@ -209,21 +212,22 @@ def _solve_from(
             )
         P_new = repair_rate_floor(params, P_new, X_new, rmin)
         cand = Allocation(p3.f, P_new, X_new, p3.rho)
-        trace.append(
-            scenario_objective(params, weights, cand, acc)
-            if cfg.use_kernel_objective
-            else objective(params, weights, cand, acc)
-        )
+        with spans.span("score"):
+            trace.append(
+                scenario_objective(params, weights, cand, acc)
+                if cfg.use_kernel_objective
+                else objective(params, weights, cand, acc)
+            )
         P, X = P_new, X_new
 
     # ---- hardening: binary X, re-solved powers, re-derived (f, rho) ----
     Xb = harden_x(X, params.N, params.K, params.dev_mask, params.sc_mask)
-    p3 = solve_p3(params, weights, P * Xb, Xb, acc)
-    payload = params.D + _col(p3.rho) * params.C
-    rmin = r_min(params, p3.rho, p3.T, p3.f)
+    with spans.span("p3"):
+        _, payload, rmin = _step1(params, weights, P * Xb, Xb, acc)
     P = power_given_x(params, weights.kappa1, payload, rmin, Xb, P0=P * Xb)
     P = repair_rate_floor(params, P, Xb, rmin)
-    p3 = solve_p3(params, weights, P, Xb, acc)               # final (f, rho, T)
+    with spans.span("p3"):
+        p3 = solve_p3(params, weights, P, Xb, acc)           # final (f, rho, T)
     alloc = Allocation(f=p3.f, P=P, X=Xb, rho=p3.rho)
     lead = tuple(p3.rho.shape)
     trace = (
@@ -233,6 +237,13 @@ def _solve_from(
     return AllocatorResult(alloc=alloc, trace=trace)
 
 
+def _step1(params: SystemParams, weights: Weights, P, X, acc):
+    """Theorem 1's (f, rho, T) given (P, X), with the payload D + rho C and
+    the rate floor they set for Step 2."""
+    p3 = solve_p3(params, weights, P, X, acc)
+    return p3, params.D + _col(p3.rho) * params.C, r_min(params, p3.rho, p3.T, p3.f)
+
+
 def _multi_start(
     params: SystemParams, weights: Weights, cfg: AllocatorConfig, acc: AccuracyFn
 ) -> AllocatorResult:
@@ -240,11 +251,12 @@ def _multi_start(
     leaves are (B,) tensors on the params' device."""
     B = params.g.shape[0]
     inners = ("sca", "pgd") if cfg.inner == "auto" else (cfg.inner,)
-    starts = (
-        equal_start(params),
-        low_power_start(params),
-        full_payload_start(params, weights, cfg.pgd),
-    )
+    with spans.span("starts", rows=B):
+        starts = (
+            equal_start(params),
+            low_power_start(params),
+            full_payload_start(params, weights, cfg.pgd),
+        )
     S = len(starts)
 
     def rows(x, n):
@@ -262,8 +274,9 @@ def _multi_start(
     cand = tree_map(
         lambda *xs: torch.cat([x.unflatten(0, (B, S)) for x in xs], dim=1), *results
     )
-    objs = _score_candidates(params, weights, cand.alloc, acc, cfg)
-    best = torch.argmin(objs, dim=1)                  # first occurrence on ties
+    with spans.span("select"):
+        objs = _score_candidates(params, weights, cand.alloc, acc, cfg)
+        best = torch.argmin(objs, dim=1)              # first occurrence on ties
     idx = torch.arange(B, device=params.device)
     return tree_map(lambda x: x[idx, best], cand)
 
@@ -375,16 +388,17 @@ def refine_with_start(
         lambda b, *xs: torch.cat([b[:, None]] + [x.unflatten(0, (B, C)) for x in xs], dim=1),
         base, *results,
     )
-    objs = _score_candidates(params, weights, cand.alloc, acc, cfg)
-    # candidates (every index > 0) compete only when their start was valid
-    # and their objective is finite; the base is never masked
-    valid_vec = torch.cat(
-        [torch.ones((B, 1), device=dev), valid.repeat(1, len(inners))], dim=1
-    )
-    is_cand = torch.arange(valid_vec.shape[1], device=dev) > 0
-    ok = (valid_vec > 0.0) & torch.isfinite(objs)
-    objs = torch.where(is_cand & ~ok, torch.inf, objs)
-    best = torch.argmin(objs, dim=1)                  # first occurrence on ties
+    with spans.span("select"):
+        objs = _score_candidates(params, weights, cand.alloc, acc, cfg)
+        # candidates (every index > 0) compete only when their start was
+        # valid and their objective is finite; the base is never masked
+        valid_vec = torch.cat(
+            [torch.ones((B, 1), device=dev), valid.repeat(1, len(inners))], dim=1
+        )
+        is_cand = torch.arange(valid_vec.shape[1], device=dev) > 0
+        ok = (valid_vec > 0.0) & torch.isfinite(objs)
+        objs = torch.where(is_cand & ~ok, torch.inf, objs)
+        best = torch.argmin(objs, dim=1)              # first occurrence on ties
     idx = torch.arange(B, device=dev)
     return tree_map(lambda x: x[idx, best], cand)
 
@@ -485,12 +499,14 @@ def solve_batch(
             )
 
     w, a = (_per_scenario_tree(t, b, dev) for t in (weights, acc))
-    if mesh is not None:
-        return run_sharded(
-            mesh, lambda p, w, a, e: _solve_rows(p, w, cfg, a, e),
-            params_batch, w, a, extra_starts,
-        )
-    return _solve_rows(params_batch, w, cfg, a, extra_starts)
+    # the request's spans time the card's stream; a mesh's keep host times
+    with spans.root("solve_batch", None if mesh is not None else dev, B=b, rows=3 * b):
+        if mesh is not None:
+            return run_sharded(
+                mesh, lambda p, w, a, e: _solve_rows(p, w, cfg, a, e),
+                params_batch, w, a, extra_starts,
+            )
+        return _solve_rows(params_batch, w, cfg, a, extra_starts)
 
 
 def _solve_rows(params, w, cfg, a, extra) -> AllocatorResult:

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from .system import device_rate
 from .types import SystemParams
 
@@ -101,44 +102,52 @@ def solve_p4_pgd(
     cfg: PGDConfig = PGDConfig(),
 ):
     """Minimise kappa1 sum_n (sum_k p)(payload)/r_n  s.t. P1's comms constraints."""
-    def loss(z, w, w_tot, temp):
-        P, X = _decode(params, z, w, w_tot, temp)
-        r = device_rate(params, P, X)
-        frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
-        hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
-        binary = torch.sum(X * (1.0 - X), dim=(-2, -1))
-        return (
-            kappa1 * torch.sum(frac, dim=-1)
-            + cfg.penalty_rate * torch.sum(hinge, dim=-1)
-            + cfg.penalty_binary * binary
+    with spans.span("pgd", rows=_rows(P0), steps=cfg.steps):
+        spans.count("adam_steps", cfg.steps)
+
+        def loss(z, w, w_tot, temp):
+            P, X = _decode(params, z, w, w_tot, temp)
+            r = device_rate(params, P, X)
+            frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
+            hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
+            binary = torch.sum(X * (1.0 - X), dim=(-2, -1))
+            return (
+                kappa1 * torch.sum(frac, dim=-1)
+                + cfg.penalty_rate * torch.sum(hinge, dim=-1)
+                + cfg.penalty_binary * binary
+            )
+
+        # warm start from (P0, X0)
+        x_aug = torch.cat(
+            [torch.clamp(X0, 1e-3, 1.0),
+             torch.clamp_min(1.0 - torch.sum(X0, dim=-2, keepdim=True), 1e-3)],
+            dim=-2,
         )
+        z = torch.log(x_aug)
+        w = _logit(P0 / torch.clamp_min(
+            params.p_max[..., None] * torch.clamp(X0, 1e-3, 1.0) ** 2, _EPS
+        ))
+        w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
 
-    # warm start from (P0, X0)
-    x_aug = torch.cat(
-        [torch.clamp(X0, 1e-3, 1.0),
-         torch.clamp_min(1.0 - torch.sum(X0, dim=-2, keepdim=True), 1e-3)],
-        dim=-2,
-    )
-    z = torch.log(x_aug)
-    w = _logit(P0 / torch.clamp_min(
-        params.p_max[..., None] * torch.clamp(X0, 1e-3, 1.0) ** 2, _EPS
-    ))
-    w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
+        mz, vz = torch.zeros_like(z), torch.zeros_like(z)
+        mw, vw = torch.zeros_like(w), torch.zeros_like(w)
+        mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
+        steps = torch.arange(cfg.steps, dtype=torch.float32, device=z.device)
+        for i in steps:
+            t = i + 1
+            frac_done = i / max(cfg.steps - 1, 1)
+            temp = 1.0 + (cfg.temp_end - 1.0) * frac_done
+            gz, gw, gt = _grad(lambda z_, w_, t_: loss(z_, w_, t_, temp), z, w, w_tot)
+            dz, mz, vz = _adam_update(gz, mz, vz, t, cfg.lr)
+            dw, mw, vw = _adam_update(gw, mw, vw, t, cfg.lr)
+            dt, mt, vt = _adam_update(gt, mt, vt, t, cfg.lr)
+            z, w, w_tot = z + dz, w + dw, w_tot + dt
+        return _decode(params, z, w, w_tot, cfg.temp_end)
 
-    mz, vz = torch.zeros_like(z), torch.zeros_like(z)
-    mw, vw = torch.zeros_like(w), torch.zeros_like(w)
-    mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
-    steps = torch.arange(cfg.steps, dtype=torch.float32, device=z.device)
-    for i in steps:
-        t = i + 1
-        frac_done = i / max(cfg.steps - 1, 1)
-        temp = 1.0 + (cfg.temp_end - 1.0) * frac_done
-        gz, gw, gt = _grad(lambda z_, w_, t_: loss(z_, w_, t_, temp), z, w, w_tot)
-        dz, mz, vz = _adam_update(gz, mz, vz, t, cfg.lr)
-        dw, mw, vw = _adam_update(gw, mw, vw, t, cfg.lr)
-        dt, mt, vt = _adam_update(gt, mt, vt, t, cfg.lr)
-        z, w, w_tot = z + dz, w + dw, w_tot + dt
-    return _decode(params, z, w, w_tot, cfg.temp_end)
+
+def _rows(P: torch.Tensor) -> int:
+    """Rows of a (..., N, K) leaf."""
+    return P.numel() // max(P.shape[-1] * P.shape[-2], 1)
 
 
 def power_given_x(
@@ -153,26 +162,29 @@ def power_given_x(
     penalty_rate: float = 10.0,
 ):
     """Re-optimise powers after hardening X to binary (per-device separable)."""
-    def decode(w, w_tot):
-        P_raw = params.p_max[..., None] * X * torch.sigmoid(w)
-        return _budgeted_power(params, P_raw, w_tot)
+    with spans.span("power_given_x", rows=_rows(X), steps=steps):
+        spans.count("adam_steps", steps)
 
-    def loss(w, w_tot):
-        P = decode(w, w_tot)
-        r = device_rate(params, P, X)
-        frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
-        hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
-        return kappa1 * torch.sum(frac, dim=-1) + penalty_rate * torch.sum(hinge, dim=-1)
+        def decode(w, w_tot):
+            P_raw = params.p_max[..., None] * X * torch.sigmoid(w)
+            return _budgeted_power(params, P_raw, w_tot)
 
-    if P0 is None:
-        P0 = params.p_max[..., None] * X * 0.25
-    w = _logit(P0 / torch.clamp_min(params.p_max[..., None] * X, _EPS))
-    w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
-    m, v = torch.zeros_like(w), torch.zeros_like(w)
-    mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
-    for i in torch.arange(steps, dtype=torch.float32, device=w.device):
-        g, gt = _grad(loss, w, w_tot)
-        dw, m, v = _adam_update(g, m, v, i + 1, lr)
-        dt, mt, vt = _adam_update(gt, mt, vt, i + 1, lr)
-        w, w_tot = w + dw, w_tot + dt
-    return decode(w, w_tot)
+        def loss(w, w_tot):
+            P = decode(w, w_tot)
+            r = device_rate(params, P, X)
+            frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
+            hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
+            return kappa1 * torch.sum(frac, dim=-1) + penalty_rate * torch.sum(hinge, dim=-1)
+
+        if P0 is None:
+            P0 = params.p_max[..., None] * X * 0.25
+        w = _logit(P0 / torch.clamp_min(params.p_max[..., None] * X, _EPS))
+        w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
+        m, v = torch.zeros_like(w), torch.zeros_like(w)
+        mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
+        for i in torch.arange(steps, dtype=torch.float32, device=w.device):
+            g, gt = _grad(loss, w, w_tot)
+            dw, m, v = _adam_update(g, m, v, i + 1, lr)
+            dt, mt, vt = _adam_update(gt, mt, vt, i + 1, lr)
+            w, w_tot = w + dw, w_tot + dt
+        return decode(w, w_tot)

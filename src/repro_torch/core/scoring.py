@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from .. import spans
 from ..kernels.fedsem_objective import ops
 from .accuracy import AccuracyFn, default_accuracy
 from .system import device_rate
@@ -115,6 +116,7 @@ def batch_objectives(
                     f"batch_objectives(weights_batched=True): weights.{name} has "
                     f"shape {shape}, want ({b},)"
                 )
-    return scenario_objective(
-        params_batch, weights, allocs, accuracy, use_kernel=use_kernel
-    )
+    with spans.root("score", params_batch.device, rows=b):
+        return scenario_objective(
+            params_batch, weights, allocs, accuracy, use_kernel=use_kernel
+        )

@@ -19,7 +19,9 @@ import torch
 
 from ..build import BASE_FLAGS, CudaLibrary, aligned16, refuse_autograd
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0; `repro_torch.spans`
+#: records its change over each span, so a launch made without this
+#: wrapper (a CUDA graph's replay) adds the launches it holds here
 launches = 0
 
 SOURCE = pathlib.Path(__file__).resolve().with_name("csrc") / "rwkv6_scan.cu"

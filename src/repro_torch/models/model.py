@@ -63,6 +63,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..configs.registry import NOT_PORTED, canonical
 from ..core.types import tree_map
 from ..parallel import collectives as C
@@ -301,16 +302,23 @@ def _gathered(blk: Block, par) -> Block:
     return Block(blk.kind, blk.is_moe, p)
 
 
-def _apply_block(blk: Block, cfg, x, positions, use_kernel, par=None, whole=False):
-    """One layer of a fresh sequence: (x, its aux term)."""
+def _apply_block(blk: Block, cfg, x, positions, use_kernel, par=None, whole=False, layer=0):
+    """One layer (index ``layer``) of a fresh sequence: (x, its aux term),
+    its two residuals in the spans ``mixer`` and ``ffn``."""
     blk = _gathered(blk, par)
-    if blk.kind == "rwkv":
-        # a fresh sequence: both mixes start from the zero state, and their
-        # final states are discarded, as in the reference's forward
-        h = rms_norm(x, blk.ln, cfg.norm_eps)
-        inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel, par=par)
-        return _channel_mix(blk, cfg, x + _post(blk, cfg, inner), None, par)[0], 0.0
-    return _ffn(blk, cfg, _mixer(blk, cfg, x, positions, use_kernel, par), par, whole)
+    with spans.span("mixer", layer=layer, kind=blk.kind):
+        if blk.kind == "rwkv":
+            # a fresh sequence: both mixes start from the zero state, and
+            # their final states are discarded, as in the reference's forward
+            h = rms_norm(x, blk.ln, cfg.norm_eps)
+            inner, _ = rwk.time_mix(blk.rwkv, cfg, h, None, use_kernel=use_kernel, par=par)
+            x = x + _post(blk, cfg, inner)
+        else:
+            x = _mixer(blk, cfg, x, positions, use_kernel, par)
+    with spans.span("ffn", layer=layer, kind=blk.kind):
+        if blk.kind == "rwkv":
+            return _channel_mix(blk, cfg, x, None, par)[0], 0.0
+        return _ffn(blk, cfg, x, par, whole)
 
 
 def _project(x, w):
@@ -384,10 +392,10 @@ def _run_layers(params: LM, cfg, x, positions, use_kernel, remat, par=None, whol
     period = cfg.pattern_len
     total = 0.0
     for i in range(0, len(layers), period):
-        def period_fn(x, blocks=layers[i:i + period]):
+        def period_fn(x, blocks=layers[i:i + period], first=i):
             aux = 0.0
-            for blk in blocks:
-                x, a = _apply_block(blk, cfg, x, positions, use_kernel, par, whole)
+            for j, blk in enumerate(blocks):
+                x, a = _apply_block(blk, cfg, x, positions, use_kernel, par, whole, first + j)
                 aux = aux + a
             return x, aux
 
@@ -508,9 +516,12 @@ def _forward_local(params, cfg, batch, par, use_kernel, remat):
     """(local logits, aux, local batch, whole) under a mesh."""
     lm = _local_lm(params, cfg, par)
     b, whole = _local_batch(batch, par)
-    x, positions = _embed(lm, cfg, b, par)
+    with spans.span("embed"):
+        x, positions = _embed(lm, cfg, b, par)
     x, aux = _run_layers(lm, cfg, x, positions, use_kernel, remat, par, whole)
-    return _head(lm, cfg, x, par), aux, b, whole
+    with spans.span("head"):
+        logits = _head(lm, cfg, x, par)
+    return logits, aux, b, whole
 
 
 def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat=True):
@@ -531,9 +542,12 @@ def forward(params, cfg: ModelConfig, batch, mesh=None, use_kernel="auto", remat
         return _as_dtensor(logits, cfg, par, whole), aux
     if not isinstance(params, LM):
         params = LM(cfg, params)
-    x, positions = _embed(params, cfg, batch)
+    with spans.span("embed"):
+        x, positions = _embed(params, cfg, batch)
     x, aux = _run_layers(params, cfg, x, positions, use_kernel, remat)
-    return _head(params, cfg, x), aux
+    with spans.span("head"):
+        logits = _head(params, cfg, x)
+    return logits, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, mesh=None, use_kernel=False, remat=True):
@@ -737,5 +751,11 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos: int, cache, mesh=None)
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch, mesh=None, use_kernel="auto"):
     """Full-sequence forward returning logits (the cache is built by the
-    decode path, as in the reference); a DTensor under a mesh."""
-    return forward(params, cfg, batch, mesh=mesh, use_kernel=use_kernel, remat=False)[0]
+    decode path, as in the reference); a DTensor under a mesh. One request
+    of the spans (`repro_torch.spans`): ``prefill``, with its positions
+    as ``tokens``, over ``embed``, each layer's ``mixer`` and ``ffn``, and
+    ``head``; they time the card's stream, and keep host times under a mesh."""
+    first = batch["tokens"] if "tokens" in batch else batch["frame_embeds"]
+    n = first.shape[0] * first.shape[1]
+    with spans.root("prefill", first if mesh is None else None, tokens=n):
+        return forward(params, cfg, batch, mesh=mesh, use_kernel=use_kernel, remat=False)[0]
