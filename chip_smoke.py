@@ -7,13 +7,14 @@ Phases (any failure exits non-zero; nothing is skipped and nothing runs on
 the CPU in place of the card):
 
 1. build the CUDA kernels of `repro_torch.kernels` (`fedsem_objective`,
-   `flash_attention`, `rwkv6_scan`, `mamba_scan`) from the sources in this
-   checkout, one nvcc (sm_90a) each, all at once, and print ptxas' report;
+   `flash_attention`, `rwkv6_scan`, `mamba_scan`, `p4_adam`) from the
+   sources in this checkout, one nvcc (sm_90a) each, all at once, and print
+   ptxas' report;
    the flash library's bf16 kernel (one instantiation per head dim; hd 80's
    at width 128) must hold BF16 `HGMMA` (wgmma) instructions in its SASS
    (`cuobjdump -sass`), and its float32 kernel (one per head dim, hd 80 at
-   its own width) TF32 ones; the WKV6, selective-scan and flash kernels'
-   registers are printed, and no instantiation of any may spill;
+   its own width) TF32 ones; the WKV6, selective-scan, flash and Adam-loop
+   kernels' registers are printed, and no instantiation of any may spill;
 2. hold the objective kernel against its plain PyTorch version on the card at the
    shapes the solver gives it ((B, G, N) = (16, 3, 10) for the multi-start
    selection, (48, 1, 10) for the per-iteration trace), at a large-G case
@@ -328,12 +329,26 @@ the CPU in place of the card):
    per driver and example, and no other kernel; fig4's sweep solved again
    with ``use_kernel_objective=False`` gives the identical X, P and rho.
    Printed: each driver's wall time, solves, launches and its claim checks
-   (recorded, not gated at cut depth).
+   (recorded, not gated at cut depth);
+22. the Adam loops' kernel (`repro_torch.kernels.p4_adam`) at the
+   allocation benchmark's three loops (PGD on 64,512 and 21,504 Table-I
+   rows x 800 steps, the power re-solve on 64,512 x 600) and at `P4_EXTRA`
+   (N 8, 16 devices a lane; the (64, 256) bucket, the wide kernel): one
+   launch a call, its device time beside its bound (`p4_bound`: float32
+   issue, the special-function unit or bytes) and the eager loop's time on
+   the same tensors; then one step on every entry of the main path's
+   64,512 rows in both modes against the eager loop and its float64 twin
+   (`tests/p4_adam_checks.py`'s `one_step_check`), and 800 PGD steps on
+   `P4_CHECK_ROWS` rows against the eager loop: the final decode's P4 loss
+   within `P4_ROW_GAP` on every row and `P4_LOSS_GAP` in the median, and
+   at least a share `P4_SAME_X` of the rows with the same hardened X.
 
 Each LM path launches, per prefill, each kernel as often as it has layers of
 that kernel's kind (attention: flash, but MLA none; rwkv: WKV6; mamba: the
 selective scan) and every other kernel never; the allocator paths (3, 13, 14, 15, 16, 18 and 21)
-launch the objective kernel and no other; the training path (17) launches
+launch the objective kernel and the Adam loops' kernel, exactly once for
+each call of `solve_p4_pgd` or `power_given_x` on the card
+(`count_adam_calls`), and no LM kernel; the training path (17) launches
 none. Each path (3, 5 + 6, 8 + 9, 11 + 12, 13, 14, 15, 16, 17, 18 and each
 model of 19) is
 driven with the kernels' launch counts set to 0 just before it and read
@@ -397,6 +412,24 @@ EXP_PER_S = 16 * 132 * FP32_FLOPS_PER_S / (132 * 128 * 2)
 #: [-1/2, 1/2] (5 FMAs: about 1 ulp, as `expf`'s 2); the exponent's insert is
 #: integer work, off that pipe
 EXP_POLY_OPS = 3 + 5 * 2
+#: phase 22's loops: the allocation benchmark's three (mode, rows, steps) at
+#: Table I's N 10, K 50: each outer iteration's PGD on 3 x 21504 rows, the
+#: full-payload start's on 21504, the power re-solve on 3 x 21504
+P4_CASES = (("pgd", 64512, 800), ("pgd", 21504, 800), ("power", 64512, 600))
+#: float32 operations and special-function operations (exponentials,
+#: log1p's logarithm, reciprocals, square roots) a (device, subcarrier)
+#: entry and step: the gradient as written out
+#: (tests/test_torch_p4_adam.py::_written_out) and Adam on z and w (PGD),
+#: or on w (power mode)
+P4_OPS = {"pgd": (80, 9), "power": (45, 6)}
+#: phase 22's other timed loops (mode, N, K, pad, rows, steps): N 8 (the
+#: (8, 32) bucket's devices, 16 a lane) on the benchmark's 64,512 rows, and
+#: the (64, 256) bucket (the wide kernel) on a serving batch's 3 x 48 rows
+P4_EXTRA = (("pgd", 8, 32, None, 64512, 800), ("pgd", 40, 200, (64, 256), 144, 800))
+#: rows of phase 22's 800-step comparison with the eager loop, and its gate
+#: on the median relative gap of the final decode's P4 loss (the gates on
+#: every row are `tests/p4_adam_checks.py`'s `P4_ROW_GAP` and `P4_SAME_X`)
+P4_CHECK_ROWS, P4_LOSS_GAP = 1024, 1e-3
 #: phases 5 and 8's float32 gates: each layer's kernel route against its
 #: plain route on the same input at the kernels' float32 (atol, rtol) (the
 #: JAX tests' 1e-4); and the kernel prefill's logits no farther from the
@@ -411,6 +444,8 @@ KERNEL_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "rwkv6_scan": "wkv6_fwd
 #: and y, hd 64), of the selective scan (bf16 x and y, float32 dt, bf16
 #: B/C, N 16) and of flash, as they appear in the mangled names ptxas reports
 MAIN_INSTANTIATION = {"rwkv6_scan": "wkv6_fwd_kernelI13__nv_bfloat16ffLi64E",
+                      # the PGD loop at 16 devices a lane (Table I's N 10)
+                      "p4_adam": "p4_adam_kernelILi16ELb1E",
                       "mamba_scan": "mamba_scan_fwd_kernelI13__nv_bfloat16fS1_Li16E",
                       # the bf16 tensor-core kernel at Gemma-2's hd 256
                       "flash_attention": "flash_fwd_kernel_sm90ILi256ELi256E"}
@@ -1810,14 +1845,157 @@ def phase_moe(device):
     return reports, launches
 
 
+def p4_rows(device, rows: int, seed: int, N: int = 10, K: int = 50, pad=None):
+    """Rows of the ``iid_rayleigh`` family (padded into the bucket ``pad``)
+    with the full-payload start's payload, rate floor and round-robin warm
+    start, as logits: (params, kappa1, payload, rmin, z, w, w_tot, X0)."""
+    import torch
+
+    from repro_torch.core import pad_params, pgd
+    from repro_torch.core.allocator import equal_start
+    from repro_torch.scenarios import get_family
+
+    params = get_family("iid_rayleigh").sample_batch(seed, rows, N=N, K=K, device=device)
+    if pad is not None:
+        params = pad_params(params, *pad)
+    _, P0, X0 = equal_start(params)
+    kappa1 = torch.ones(rows, device=device)
+    return (params, kappa1, params.D + params.C, params.C / params.t_sc_max,
+            *pgd._pgd_start(params, P0, X0), X0)
+
+
+def p4_bound(mode: str, rows: int, steps: int, N: int = 10, K: int = 50):
+    """(ms, 'operations'|'special functions'|'bytes'): the least time of a
+    call: `P4_OPS` an entry and step at one float32 operation a lane and
+    clock, or 16 special functions a clock and SM (`EXP_PER_S`), or each
+    row's inputs read and outputs written once."""
+    ops, sfu = P4_OPS[mode]
+    entries = rows * steps * N * K
+    nk = (5 if mode == "pgd" else 4) * N * K + (2 * K if mode == "pgd" else 0)
+    nbytes = 4 * rows * (nk + 6 * N + K + 1)
+    cands = ((entries * ops / (FP32_FLOPS_PER_S / 2) * 1e3, "operations"),
+             (entries * sfu / EXP_PER_S * 1e3, "special functions"),
+             (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return max(cands)
+
+
+def phase_p4_adam(device):
+    """Phase 22: the Adam loops' kernel (`kernels/p4_adam`) at the allocation
+    benchmark's shapes and at `P4_EXTRA`, timed on the device beside its
+    bound and the eager loop, and each timed call's final decode held to the
+    eager loop's (P4 loss gap, in the median, and the share of identical
+    hardened X); held to the eager loop for one step on every entry of the
+    main path's rows and over 800 steps on every row of `P4_CHECK_ROWS`."""
+    import torch
+
+    from repro_torch.core import pgd
+    from repro_torch.core.allocator import harden_x
+    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel, ops as p4_ops
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().with_name("tests")))
+    import p4_adam_checks
+
+    cases, n0 = [], p4_kernel.launches
+    shapes = [(mode, 10, 50, None, rows, steps) for mode, rows, steps in P4_CASES] + list(P4_EXTRA)
+    for mode, N, K, pad, rows, steps in shapes:
+        params, kappa1, payload, rmin, z, w, w_tot, X0 = p4_rows(device, rows, rows, N, K, pad)
+        cfg = PGDConfig(steps=steps)
+        if mode == "pgd":
+            routes = (lambda: p4_ops.pgd_loop(params, kappa1, payload, rmin, z, w, w_tot, cfg),
+                      lambda: pgd._pgd_loop(params, kappa1, payload, rmin, z, w, w_tot, cfg))
+        else:
+            Xb = harden_x(X0, params.N, params.K, params.dev_mask, params.sc_mask)
+            args = (params, kappa1, payload, rmin, Xb, w, w_tot, steps, cfg.lr, cfg.penalty_rate)
+            routes = (lambda: p4_ops.power_loop(*args), lambda: pgd._power_loop(*args))
+        last = [None, None]                       # each route's last (P, X)
+        keep = lambda i: lambda: last.__setitem__(i, routes[i]()[:2])
+        before = p4_kernel.launches
+        ms = cuda_ms(keep(0), 3)
+        check(p4_kernel.launches - before == 4, f"p4_adam {mode} {rows}: not one launch a call")
+        plain_ms = cuda_ms(keep(1), 1)
+        bound_ms, bound_by = p4_bound(mode, rows, steps, params.N, params.K)
+        shape = (params.N, params.K) if pad is None else (N, K, "padded", pad)
+        loss = [p4_adam_checks.p4_loss(params, kappa1, payload, rmin, P, X, cfg) for P, X in last]
+        gap = (loss[0] - loss[1]) / loss[1].abs()
+        hard = [harden_x(X, params.N, params.K, params.dev_mask, params.sc_mask) for _, X in last]
+        same = float(torch.all((hard[0] == hard[1]).flatten(1), dim=1).float().mean())
+        cases.append(dict(mode=mode, shape=shape, rows=rows, steps=steps, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, loss_gap=float(gap.median()),
+                          loss_gap_max=float(gap.abs().max()), same_hardened_x=same))
+        print(f"p4_adam {mode} ({rows} rows x {steps} steps, N K {shape}): device {ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% reached), "
+              f"eager loop {plain_ms:.1f} ms ({plain_ms / ms:.1f}x); against it: relative P4 "
+              f"loss gap median {float(gap.median()):.3e}, max |gap| {float(gap.abs().max()):.3e}, "
+              f"identical hardened X {same:.4f}", flush=True)
+        check(bool(torch.isfinite(loss[0]).all()), f"p4_adam {mode} {shape}: a non-finite loss")
+        check(float(gap.median()) <= P4_LOSS_GAP,
+              f"p4_adam {mode} {shape}: median relative loss gap {float(gap.median())} > {P4_LOSS_GAP}")
+        check(same >= p4_adam_checks.P4_SAME_X,
+              f"p4_adam {mode} {shape}: identical hardened X on a share {same} < {p4_adam_checks.P4_SAME_X}")
+        del params, z, w, w_tot, X0, routes, last, hard
+        torch.cuda.empty_cache()
+
+    # every entry of the main path's rows, one step, both modes
+    for mode in ("pgd", "power"):
+        p4_adam_checks.one_step_check(device, (10, 50), None, mode, rows=P4_CASES[0][1])
+        torch.cuda.empty_cache()
+    print(f"p4_adam one step on {P4_CASES[0][1]} rows, both modes: every entry within the "
+          "one-step gates", flush=True)
+    gaps, finite, same = p4_adam_checks.loss_gaps(device, 10, 50, rows=P4_CHECK_ROWS)
+    check(finite, "p4_adam: a non-finite loss")
+    med, worst = float(gaps.median()), float(gaps.abs().max())
+    print(f"p4_adam vs eager loop, {P4_CHECK_ROWS} rows x 800 steps: relative P4 loss gap median "
+          f"{med:.3e} (gate {P4_LOSS_GAP}), max |gap| {worst:.3e} (gate "
+          f"{p4_adam_checks.P4_ROW_GAP}), identical hardened X {same:.4f} (gate "
+          f"{p4_adam_checks.P4_SAME_X})", flush=True)
+    check(med <= P4_LOSS_GAP, f"p4_adam: median relative loss gap {med} > {P4_LOSS_GAP}")
+    check(worst <= p4_adam_checks.P4_ROW_GAP,
+          f"p4_adam: a row's relative loss gap {worst} > {p4_adam_checks.P4_ROW_GAP}")
+    check(same >= p4_adam_checks.P4_SAME_X,
+          f"p4_adam: identical hardened X on a share {same} < {p4_adam_checks.P4_SAME_X}")
+    return dict(cases=cases, loss_gap=med, loss_gap_max=worst, same_hardened_x=same,
+                launches=p4_kernel.launches - n0)
+
+
+#: calls of `core.pgd.solve_p4_pgd` and `core.pgd.power_given_x` on the card
+#: since `zero_launches` (`count_adam_calls` installs the count); and each
+#: allocator path's p4_adam launches, filed by `only_objective_launched`
+ADAM_CALLS = [0]
+P4_BY_PATH: dict = {}
+
+
+def count_adam_calls() -> None:
+    """Count every call of the two Adam loops on CUDA tensors, under each
+    name the allocator and the baselines look them up by."""
+    import functools
+
+    from repro_torch.core import allocator, baselines, pgd
+
+    def counted(fn):
+        @functools.wraps(fn)
+        def call(params, *args, **kwargs):
+            ADAM_CALLS[0] += bool(params.g.is_cuda)
+            return fn(params, *args, **kwargs)
+        return call
+
+    for name in ("solve_p4_pgd", "power_given_x"):
+        wrapped = counted(getattr(pgd, name))
+        for mod in (pgd, allocator, baselines):
+            if hasattr(mod, name):
+                setattr(mod, name, wrapped)
+
+
 def zero_launches():
     """Set every kernel's launch count to 0 (the start of a path)."""
     from repro_torch.kernels.fedsem_objective import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 
     kernel.launches = flash_kernel.launches = wkv_kernel.launches = scan_kernel.launches = 0
+    p4_kernel.launches = ADAM_CALLS[0] = 0
 
 
 def check_no_lm_kernel(what: str) -> None:
@@ -1834,10 +2012,16 @@ def check_no_lm_kernel(what: str) -> None:
 
 def only_objective_launched(what: str) -> int:
     """The end of an allocator path: its objective-kernel launches; no LM
-    kernel may have launched."""
+    kernel may have launched, and the Adam loops' kernel exactly once for
+    each of the path's Adam loops on the card (filed in `P4_BY_PATH`)."""
     from repro_torch.kernels.fedsem_objective import kernel
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel
 
     check_no_lm_kernel(what)
+    check(p4_kernel.launches == ADAM_CALLS[0],
+          f"{what}: {p4_kernel.launches} p4_adam launches for {ADAM_CALLS[0]} Adam loops on the card")
+    P4_BY_PATH[what] = p4_kernel.launches
+    print(f"{what}: {p4_kernel.launches} p4_adam launches, one for each Adam loop", flush=True)
     return kernel.launches
 
 
@@ -3118,16 +3302,18 @@ def main() -> int:
     from repro_torch.kernels.fedsem_objective import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_adam_calls()
 
     # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    all_kernels = (kernel, flash_kernel, wkv_kernel, scan_kernel)
+    all_kernels = (kernel, flash_kernel, wkv_kernel, scan_kernel, p4_kernel)
     with concurrent.futures.ThreadPoolExecutor(len(all_kernels)) as pool:
         builds = [pool.submit(k.build) for k in all_kernels]
         built = [b.result() for b in builds]
@@ -3148,9 +3334,9 @@ def main() -> int:
         print(f"build: {path.name} (all builds together: {build_s:.2f} s)", flush=True)
         for line in log.strip().splitlines():
             print(f"  ptxas: {line.strip()}")
-    # the WKV6, scan and flash kernels: registers of every instantiation, no spills
+    # the WKV6, scan, flash and Adam-loop kernels: registers of every instantiation, no spills
     ptxas = {}
-    for k in (wkv_kernel, scan_kernel, flash_kernel):
+    for k in (wkv_kernel, scan_kernel, flash_kernel, p4_kernel):
         name = k.__name__.split(".")[-2]
         rep = ptxas_report(built[all_kernels.index(k)][1])
         if not rep:
@@ -3240,6 +3426,10 @@ def main() -> int:
 
     # phase 21: the paper's figure and table drivers and the three examples
     paper, paper_launches = timed("21", phase_paper, device)
+
+    # phase 22: the Adam loops' kernel at the allocation benchmark's shapes
+    p4_adam = timed("22", phase_p4_adam, device)
+    main_p4 = p4_adam["cases"][0]
     objective_by_path = {"solve_batch": launches, "families": families_launches,
                          "exhaustive": oracle_launches, "serving": serving_launches,
                          "fedsem": fedsem_launches, "federated_lm": fedlm_launches,
@@ -3302,6 +3492,21 @@ def main() -> int:
         "bound_by": main_scan["bound_by"],
         "library_ms": None,
         "ptxas": ptxas.get("mamba_scan"),
+    }, {
+        "name": "p4_adam",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/p4_adam/csrc/p4_adam.cu",
+        "replaces": None,
+        "launches": sum(P4_BY_PATH.values()),
+        "launches_by_path": dict(P4_BY_PATH),
+        "loss_gap": p4_adam["loss_gap"],
+        "loss_gap_max": p4_adam["loss_gap_max"],
+        "ms": main_p4["ms"],
+        "plain_ms": main_p4["plain_ms"],
+        "bound_ms": main_p4["bound_ms"],
+        "bound_by": main_p4["bound_by"],
+        "library_ms": None,
+        "ptxas": ptxas.get("p4_adam"),
     }]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3316,13 +3521,13 @@ def main() -> int:
                  scan_cases=scan_cases, jamba=jamba, families=families, classes=classes,
                  oracle=oracle, serving=serving, fedsem=fedsem, training=training,
                  federated_lm=fedlm, models=models, moe_models=moe_models, paper=paper,
-                 record=record,
+                 p4_adam=p4_adam, record=record,
                  card=smi, phase_s=phase_s, script_s=time.perf_counter() - t_script),
             indent=1, default=str))
     import torch.distributed as dist
 
     dist.destroy_process_group()
-    print(f"chip_smoke: all 21 phases passed in {time.perf_counter() - t_script:.2f} s", flush=True)
+    print(f"chip_smoke: all 22 phases passed in {time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps(record))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,11 @@ Rows of a batch are independent, so the gradient of the batch-summed loss
 is each row's own gradient. The step counter is a float32 tensor, as in the
 reference's scan, so the Adam bias corrections and the temperature anneal
 are float32 math.
+
+On CUDA tensors each loop, every step of every row, is one launch of the
+`p4_adam` kernel (`kernels/p4_adam`); on CPU tensors it is eager autograd
+(`_pgd_loop`, `_power_loop`, through `_grad` and `_adam_update`), which is
+also the kernel's plain version, on any device.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .. import spans
+from ..kernels.p4_adam import ops as p4_adam
 from .system import device_rate
 from .types import SystemParams
 
@@ -92,6 +98,69 @@ def _decode(params: SystemParams, z, w, w_tot, temp):
     return _budgeted_power(params, P_raw, w_tot), X
 
 
+class AdamRun(NamedTuple):
+    """What an Adam loop leaves: the decoded (P, X) (X as given in
+    `power_given_x`'s loop), the logits after the last step ((z, w, w_tot),
+    or (w, w_tot)) and each one's Adam moments (m, v), in that order. The
+    kernel route (`kernels.p4_adam.ops`) returns the same four as a tuple,
+    its moments only when asked: the one-step tests read the gradient from
+    the first moment, since one Adam step's update is lr sign(g)."""
+
+    P: torch.Tensor
+    X: torch.Tensor
+    logits: tuple
+    moments: tuple
+
+
+def _pgd_start(params: SystemParams, P0, X0):
+    """The logits (z, w, w_tot) whose decode is near the warm start (P0, X0)."""
+    x_aug = torch.cat(
+        [torch.clamp(X0, 1e-3, 1.0),
+         torch.clamp_min(1.0 - torch.sum(X0, dim=-2, keepdim=True), 1e-3)],
+        dim=-2,
+    )
+    z = torch.log(x_aug)
+    w = _logit(P0 / torch.clamp_min(
+        params.p_max[..., None] * torch.clamp(X0, 1e-3, 1.0) ** 2, _EPS
+    ))
+    w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
+    return z, w, w_tot
+
+
+def _pgd_loop(params: SystemParams, kappa1, payload, rmin, z, w, w_tot,
+              cfg: PGDConfig) -> AdamRun:
+    """`solve_p4_pgd`'s Adam loop from the logits (z, w, w_tot), eager
+    autograd on any device: the plain version of the `p4_adam` kernel."""
+
+    def loss(z, w, w_tot, temp):
+        P, X = _decode(params, z, w, w_tot, temp)
+        r = device_rate(params, P, X)
+        frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
+        hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
+        binary = torch.sum(X * (1.0 - X), dim=(-2, -1))
+        return (
+            kappa1 * torch.sum(frac, dim=-1)
+            + cfg.penalty_rate * torch.sum(hinge, dim=-1)
+            + cfg.penalty_binary * binary
+        )
+
+    mz, vz = torch.zeros_like(z), torch.zeros_like(z)
+    mw, vw = torch.zeros_like(w), torch.zeros_like(w)
+    mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
+    steps = torch.arange(cfg.steps, dtype=torch.float32, device=z.device)
+    for i in steps:
+        t = i + 1
+        frac_done = i / max(cfg.steps - 1, 1)
+        temp = 1.0 + (cfg.temp_end - 1.0) * frac_done
+        gz, gw, gt = _grad(lambda z_, w_, t_: loss(z_, w_, t_, temp), z, w, w_tot)
+        dz, mz, vz = _adam_update(gz, mz, vz, t, cfg.lr)
+        dw, mw, vw = _adam_update(gw, mw, vw, t, cfg.lr)
+        dt, mt, vt = _adam_update(gt, mt, vt, t, cfg.lr)
+        z, w, w_tot = z + dz, w + dw, w_tot + dt
+    P, X = _decode(params, z, w, w_tot, cfg.temp_end)
+    return AdamRun(P, X, (z, w, w_tot), ((mz, vz), (mw, vw), (mt, vt)))
+
+
 def solve_p4_pgd(
     params: SystemParams,
     kappa1,
@@ -101,53 +170,49 @@ def solve_p4_pgd(
     X0: torch.Tensor,
     cfg: PGDConfig = PGDConfig(),
 ):
-    """Minimise kappa1 sum_n (sum_k p)(payload)/r_n  s.t. P1's comms constraints."""
+    """Minimise kappa1 sum_n (sum_k p)(payload)/r_n  s.t. P1's comms constraints.
+
+    The Adam loop runs as one `p4_adam` kernel launch on CUDA tensors and as
+    eager autograd (`_pgd_loop`) on CPU tensors."""
     with spans.span("pgd", rows=_rows(P0), steps=cfg.steps):
         spans.count("adam_steps", cfg.steps)
-
-        def loss(z, w, w_tot, temp):
-            P, X = _decode(params, z, w, w_tot, temp)
-            r = device_rate(params, P, X)
-            frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
-            hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
-            binary = torch.sum(X * (1.0 - X), dim=(-2, -1))
-            return (
-                kappa1 * torch.sum(frac, dim=-1)
-                + cfg.penalty_rate * torch.sum(hinge, dim=-1)
-                + cfg.penalty_binary * binary
-            )
-
-        # warm start from (P0, X0)
-        x_aug = torch.cat(
-            [torch.clamp(X0, 1e-3, 1.0),
-             torch.clamp_min(1.0 - torch.sum(X0, dim=-2, keepdim=True), 1e-3)],
-            dim=-2,
-        )
-        z = torch.log(x_aug)
-        w = _logit(P0 / torch.clamp_min(
-            params.p_max[..., None] * torch.clamp(X0, 1e-3, 1.0) ** 2, _EPS
-        ))
-        w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
-
-        mz, vz = torch.zeros_like(z), torch.zeros_like(z)
-        mw, vw = torch.zeros_like(w), torch.zeros_like(w)
-        mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
-        steps = torch.arange(cfg.steps, dtype=torch.float32, device=z.device)
-        for i in steps:
-            t = i + 1
-            frac_done = i / max(cfg.steps - 1, 1)
-            temp = 1.0 + (cfg.temp_end - 1.0) * frac_done
-            gz, gw, gt = _grad(lambda z_, w_, t_: loss(z_, w_, t_, temp), z, w, w_tot)
-            dz, mz, vz = _adam_update(gz, mz, vz, t, cfg.lr)
-            dw, mw, vw = _adam_update(gw, mw, vw, t, cfg.lr)
-            dt, mt, vt = _adam_update(gt, mt, vt, t, cfg.lr)
-            z, w, w_tot = z + dz, w + dw, w_tot + dt
-        return _decode(params, z, w, w_tot, cfg.temp_end)
+        z, w, w_tot = _pgd_start(params, P0, X0)        # warm start from (P0, X0)
+        loop = p4_adam.pgd_loop if w.is_cuda else _pgd_loop
+        P, X, _, _ = loop(params, kappa1, payload, rmin, z, w, w_tot, cfg)
+        return P, X
 
 
 def _rows(P: torch.Tensor) -> int:
     """Rows of a (..., N, K) leaf."""
     return P.numel() // max(P.shape[-1] * P.shape[-2], 1)
+
+
+def _power_decode(params: SystemParams, X, w, w_tot):
+    """`power_given_x`'s decode: P_raw = Pmax X sigmoid(w) under the budget."""
+    P_raw = params.p_max[..., None] * X * torch.sigmoid(w)
+    return _budgeted_power(params, P_raw, w_tot)
+
+
+def _power_loop(params: SystemParams, kappa1, payload, rmin, X, w, w_tot,
+                steps: int, lr: float, penalty_rate: float) -> AdamRun:
+    """`power_given_x`'s Adam loop from the logits (w, w_tot), eager autograd
+    on any device: the plain version of the `p4_adam` kernel's power mode."""
+
+    def loss(w, w_tot):
+        P = _power_decode(params, X, w, w_tot)
+        r = device_rate(params, P, X)
+        frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
+        hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
+        return kappa1 * torch.sum(frac, dim=-1) + penalty_rate * torch.sum(hinge, dim=-1)
+
+    m, v = torch.zeros_like(w), torch.zeros_like(w)
+    mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
+    for i in torch.arange(steps, dtype=torch.float32, device=w.device):
+        g, gt = _grad(loss, w, w_tot)
+        dw, m, v = _adam_update(g, m, v, i + 1, lr)
+        dt, mt, vt = _adam_update(gt, mt, vt, i + 1, lr)
+        w, w_tot = w + dw, w_tot + dt
+    return AdamRun(_power_decode(params, X, w, w_tot), X, (w, w_tot), ((m, v), (mt, vt)))
 
 
 def power_given_x(
@@ -161,30 +226,13 @@ def power_given_x(
     lr: float = 0.08,
     penalty_rate: float = 10.0,
 ):
-    """Re-optimise powers after hardening X to binary (per-device separable)."""
+    """Re-optimise powers after hardening X to binary (per-device separable):
+    one `p4_adam` kernel launch on CUDA tensors, `_power_loop` on CPU ones."""
     with spans.span("power_given_x", rows=_rows(X), steps=steps):
         spans.count("adam_steps", steps)
-
-        def decode(w, w_tot):
-            P_raw = params.p_max[..., None] * X * torch.sigmoid(w)
-            return _budgeted_power(params, P_raw, w_tot)
-
-        def loss(w, w_tot):
-            P = decode(w, w_tot)
-            r = device_rate(params, P, X)
-            frac = torch.sum(P, dim=-1) * payload / _maximum(r, _EPS)
-            hinge = torch.square(_maximum(rmin - r, 0.0) / _maximum(rmin, 1.0))
-            return kappa1 * torch.sum(frac, dim=-1) + penalty_rate * torch.sum(hinge, dim=-1)
-
         if P0 is None:
             P0 = params.p_max[..., None] * X * 0.25
         w = _logit(P0 / torch.clamp_min(params.p_max[..., None] * X, _EPS))
         w_tot = _logit(torch.sum(P0, dim=-1) / params.p_max * 1.2)
-        m, v = torch.zeros_like(w), torch.zeros_like(w)
-        mt, vt = torch.zeros_like(w_tot), torch.zeros_like(w_tot)
-        for i in torch.arange(steps, dtype=torch.float32, device=w.device):
-            g, gt = _grad(loss, w, w_tot)
-            dw, m, v = _adam_update(g, m, v, i + 1, lr)
-            dt, mt, vt = _adam_update(gt, mt, vt, i + 1, lr)
-            w, w_tot = w + dw, w_tot + dt
-        return decode(w, w_tot)
+        loop = p4_adam.power_loop if w.is_cuda else _power_loop
+        return loop(params, kappa1, payload, rmin, X, w, w_tot, steps, lr, penalty_rate)[0]

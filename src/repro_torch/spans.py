@@ -54,6 +54,7 @@ LAUNCH_COUNTERS = (
     ("objective_launches", "repro_torch.kernels.fedsem_objective.kernel"),
     ("flash_launches", "repro_torch.kernels.flash_attention.kernel"),
     ("wkv6_launches", "repro_torch.kernels.rwkv6_scan.kernel"),
+    ("p4_adam_launches", "repro_torch.kernels.p4_adam.kernel"),
 )
 
 

@@ -14,6 +14,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as f
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel, ops as scan_ops, ref as scan_ref
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel, ops as wkv_ops, ref as wkv_ref
 from repro_torch.models.attention import flash_attention as plain_flash
+import p4_adam_checks
 from torch_port_util import assert_scores, grid_inputs, tf32
 
 XI, ETA, AB = 1e-28, 10, (0.6356, 0.4025)
@@ -1157,6 +1158,7 @@ def test_spans_hold_their_kernels_on_the_profilers_clock(card, monkeypatch):
     assert [s["name"] for s in solver] == ["pgd"] * (cfg.outer_iters + 1) + ["power_given_x"]
     gaps = [(s["device"][0] - b0, s["device"][1] - b1) for s, (b0, b1) in zip(solver, placed)]
     assert len(placed) == len(solver) and max(abs(g) for pair in gaps for g in pair) <= EDGE_NS, gaps
+    assert all(s["attrs"]["p4_adam_launches"] == 1 for s in solver)     # one launch a loop
 
     scoring = [s for s in snap if s["name"] in ("score", "select")]
     assert [s["name"] for s in scoring] == ["score"] * cfg.outer_iters + ["select", "score"]
@@ -1165,3 +1167,120 @@ def test_spans_hold_their_kernels_on_the_profilers_clock(card, monkeypatch):
     lo, hi = request["device"]
     assert all(lo <= s["device"][0] <= s["device"][1] <= hi for s in scoring[:-1] + solver)
     assert len([r for r in rows if PORT_KERNELS["objective"] in r[0]]) <= len(scoring)
+
+
+# ---------------------------------------------------------------------------
+# Alg. A2's Adam loops (kernels/p4_adam) against the eager loop on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pad,rows", [
+    ((10, 50), None, 64), ((4, 5), None, 64), ((16, 64), None, 64), ((6, 12), (8, 16), 64),
+    ((20, 100), (32, 128), 64), ((40, 200), (64, 256), 16)],
+    ids=["table1", "table2", "alg_analysis", "padded", "bucket_32_128", "bucket_64_256"])
+@pytest.mark.parametrize("mode", ["pgd", "power"])
+def test_p4_adam_one_step_matches_the_eager_loop(card, shape, pad, rows, mode):
+    """One Adam step, kernel against the eager loop on the same CUDA tensors
+    and in float64 (`p4_adam_checks.one_step_check` states the gates); the
+    serving ladder's two widest buckets, padded, take the wide kernel."""
+    p4_adam_checks.one_step_check(card, shape, pad, mode, rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pad,rows", [((10, 50), None, 1024), ((20, 100), (32, 128), 128)],
+                         ids=["table1", "bucket_32_128"])
+def test_p4_adam_800_steps_hold_the_eager_loops_loss(card, shape, pad, rows):
+    """`solve_p4_pgd`'s 800 steps from the full-payload start, kernel
+    against the eager loop on the same CUDA tensors: on every row the
+    final decode's P4 loss within `P4_ROW_GAP` of the plain loop's, relative,
+    their median within 1e-3, and at least a share `P4_SAME_X` of the rows
+    with the same hardened X (`p4_adam_checks` says why)."""
+    gaps, finite, same = p4_adam_checks.loss_gaps(card, *shape, rows=rows, pad=pad)
+    assert finite
+    print(f"p4_adam 800 steps, {rows} rows at {shape} (pad {pad}): rel loss gap median "
+          f"{float(gaps.median()):.3e}, max |gap| {float(gaps.abs().max()):.3e}, "
+          f"identical hardened X {same:.4f}")
+    assert float(gaps.median()) <= 1e-3
+    assert float(gaps.abs().max()) <= p4_adam_checks.P4_ROW_GAP
+    assert same >= p4_adam_checks.P4_SAME_X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pad,B", [((10, 50), None, 64), ((20, 100), (32, 128), 8),
+                                         ((40, 200), (64, 256), 4)],
+                         ids=["table1", "bucket_32_128", "bucket_64_256"])
+def test_solve_batch_pgd_on_the_card_is_feasible_through_the_kernel(card, shape, pad, B):
+    """A default-depth `solve_batch(inner="pgd")` on the card, at Table I's
+    width and in the serving ladder's two widest buckets (padded, as the
+    serving layer pads): every scenario feasible, one kernel launch for
+    each of its seven PGD calls and its power re-solve."""
+    from repro_torch.core import (AllocatorConfig, Weights, pad_params, sample_params_batch,
+                                  solve_batch)
+    from repro_torch.core.system import feasible
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel
+
+    params = sample_params_batch(11, B, N=shape[0], K=shape[1], device=card)
+    if pad is not None:
+        params = pad_params(params, *pad)
+    before = p4_kernel.launches
+    res = solve_batch(params, Weights.ones(card), AllocatorConfig(inner="pgd"))
+    torch.cuda.synchronize()
+    assert p4_kernel.launches - before == AllocatorConfig().outer_iters + 2
+    assert bool(feasible(params, res.alloc).all())
+    X = res.alloc.X
+    assert bool(((X == 0) | (X == 1)).all()) and bool((X.sum(dim=-2) == params.sc_mask).all())
+    assert not bool(X[params.dev_mask == 0].any())
+
+
+@pytest.mark.cuda
+def test_p4_adam_schedule_on_the_card_is_the_eager_loops(card):
+    """On the card the table's temperature and bias corrections are, bit for
+    bit, what the eager loop computes from its 0-dim step counter."""
+    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel
+
+    cfg = PGDConfig()
+    sched = p4_kernel.schedule(cfg.steps, cfg.temp_end, card)
+    want = []
+    for i in torch.arange(cfg.steps, dtype=torch.float32, device=card):
+        t = i + 1
+        temp = 1.0 + (cfg.temp_end - 1.0) * (i / max(cfg.steps - 1, 1))
+        want.append(torch.stack([temp, 1 - 0.9**t, 1 - 0.999**t]))
+    assert torch.equal(sched, torch.stack(want))
+
+
+@pytest.mark.cuda
+def test_p4_adam_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.core import pgd
+    from repro_torch.core.pgd import PGDConfig
+    from repro_torch.core.types import tree_map
+    from repro_torch.kernels.p4_adam import kernel as p4_kernel, ops as p4_ops
+
+    params, kappa1, payload, rmin, P0, X0 = p4_adam_checks.p4_rows(card, 4, 8, rows=4)
+    z, w, w_tot = pgd._pgd_start(params, P0, X0)
+    cfg = PGDConfig(steps=2)
+    on_cpu = tree_map(lambda t: t.cpu(), (params, kappa1, payload, rmin, z, w, w_tot))
+    with pytest.raises(ValueError, match="CUDA"):
+        p4_ops.pgd_loop(*on_cpu, cfg)
+    kw = dict(steps=2, q=2, lr=0.08, penalty_rate=10.0, penalty_binary=0.3, temp_end=0.25,
+              bbar=params.bbar, noise_sc=params.noise_sc)
+    rows = (params.g, params.p_max, params.dev_mask, params.sc_mask, payload, rmin, kappa1)
+    before = p4_kernel.launches
+    p4_kernel.pgd_loop(*rows, z, w, w_tot, **kw)
+    assert p4_kernel.launches == before + 1
+    for n, k in ((65, 80), (4, 257)):          # beyond MAX_N devices, MAX_K subcarriers
+        g = torch.rand((1, n, k), device=card)
+        wide = (g, torch.ones(1, n, device=card), torch.ones(1, n, device=card),
+                torch.ones(1, k, device=card), torch.ones(1, n, device=card),
+                torch.ones(1, n, device=card), torch.ones(1, device=card))
+        with pytest.raises(ValueError, match="takes 1 <= N"):
+            p4_kernel.pgd_loop(*wide, torch.zeros(1, n + 1, k, device=card), g, wide[1], **kw)
+    with pytest.raises(ValueError, match="not contiguous"):
+        p4_kernel.pgd_loop(*rows, z, w.transpose(-1, -2).contiguous().transpose(-1, -2), w_tot, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        p4_kernel.pgd_loop(*rows, z, w[:, :, :4], w_tot, **kw)
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        p4_kernel.pgd_loop(*rows, z, w.clone().requires_grad_(True), w_tot, **kw)
+    with torch.no_grad():
+        p4_kernel.pgd_loop(*rows, z, w.clone().requires_grad_(True), w_tot, **kw)
+    assert p4_kernel.launches == before + 2

@@ -139,6 +139,7 @@ def test_solve_batch_gives_alg_a2s_tree_and_bit_identical_answers(store, inner):
     for s in snap["spans"]:
         assert s["host"][0] <= s["host"][1]
         assert s["attrs"]["objective_launches"] == 0                   # the plain scoring on the CPU
+        assert s["attrs"]["p4_adam_launches"] == 0                     # the eager Adam loops
         if s["name"] in ("pgd", "power_given_x"):                      # the innermost span's
             assert s["attrs"]["adam_steps"] == s["attrs"]["steps"]
             assert s["attrs"]["rows"] == (B if s["parent"] == starts["id"] else 3 * B)
